@@ -1,6 +1,6 @@
-"""TPU-native Qwen3-TTS framework (JAX / XLA / Pallas).
+"""Qwen3-TTS framework in JAX / XLA.
 
-A ground-up rebuild of the capabilities of leaxer-ai/leaxer-qwen3-tts for TPU:
+A ground-up rebuild of the capabilities of leaxer-ai/leaxer-qwen3-tts in JAX:
 text -> BPE tokens -> talker transformer (jitted prefill + device-resident-KV
 decode) -> 16-codebook 12 Hz acoustic codes -> causal codec vocoder -> 24 kHz WAV,
 with language control, on-device seeded sampling, and voice cloning.

@@ -62,7 +62,7 @@ def _round_up(n: int, multiple: int) -> int:
 
 
 class TTSEngine:
-    """TPU-native Qwen3-TTS engine.
+    """Qwen3-TTS engine.
 
     Construct from a checkpoint dir (``config.json`` + weights, see
     runtime/weights.py) or directly from (config, params) pytrees.  Like the
@@ -90,9 +90,6 @@ class TTSEngine:
         spec_accept_floor: float = 0.3,
         spec_adapt_window: int = 24,
         kv_quant: bool = False,
-        mtp_quantize: Optional[str] = None,
-        mtp_resident: Optional[bool] = None,
-        frame_fused: Optional[bool] = None,
     ):
         self._ready = False
         self._error = ""
@@ -114,24 +111,11 @@ class TTSEngine:
         # adaptive spec: once >= spec_adapt_window verify iterations have run
         # with trailing acceptance below spec_accept_floor, the request
         # reverts to sequential decode (runtime/speculative.spec_to_seq) so
-        # enabling spec can never cost more than a few percent vs plain
-        # decode (measured floor ~+5%: 4.16 vs 3.95 ms/frame at 0% match).
-        # 0 disables the fallback.
+        # enabling spec costs little more than plain decode when drafts
+        # miss.  0 disables the fallback.
         self.spec_accept_floor = float(spec_accept_floor)
         self.spec_adapt_window = max(1, int(spec_adapt_window))
         full = self.max_frames + 32
-        if full > 1024:
-            # the windowed fused decode kernel streams K/V in 512-slot
-            # chunks; WINDOW-align the top bucket so long-form requests stay
-            # on the fused path (ops/fused_step.py)
-            full = _round_up(full, 512)
-        elif kv_quant:
-            # int8-KV fused kernels need 128-aligned buckets (the scale
-            # rows tile at 128 slots; talker.py gates on max_len % 128) —
-            # an unaligned top bucket would silently fall back to the XLA
-            # step, which costs ~+25% per frame (measured: the bench's
-            # 416-slot kvq arm ran XLA at 2.49 ms/frame vs ~2.0 fused)
-            full = _round_up(full, 128)
         # KV-cache bucket ladder: attention reads scale with the CURRENT
         # bucket, so early frames of a long-form request decode at
         # short-form cost; the cache is zero-padded up a bucket when the
@@ -162,35 +146,9 @@ class TTSEngine:
                 if config is None or params is None:
                     raise EngineError("need model_dir or (config, params)")
                 self.cfg, self.params = config, params
-            if mtp_resident is not None:
-                # pin the resident-trunk MTP chain on/off (config.resident;
-                # None keeps the QTTS_MTP_RESIDENT env default)
-                import dataclasses as _dc
-
-                self.cfg = _dc.replace(
-                    self.cfg,
-                    code_predictor=_dc.replace(
-                        self.cfg.code_predictor, resident=bool(mtp_resident)
-                    ),
-                )
-            if frame_fused is not None:
-                # pin the whole-frame fused kernel (ops/fused_frame.py) on/
-                # off; None keeps the QTTS_FRAME_FUSED env default.
-                # Sequential-only — never combined with spec_k (the kernel's
-                # in-kernel logits transport differs from the verify path's).
-                import dataclasses as _dc
-
-                if frame_fused and self.spec_k is not None:
-                    raise EngineError(
-                        "frame_fused is sequential-only: unset spec_k"
-                    )
-                self.cfg = _dc.replace(
-                    self.cfg, frame_fused=bool(frame_fused)
-                )
             if kv_quant:
                 # int8 KV cache with per-slot scales on the TALKER only (the
-                # MTP cache is <=64 slots — its bytes are noise, and keeping
-                # it bf16 leaves the fused MTP kernels untouched).  Weight
+                # MTP cache is <=64 slots — its bytes are noise).  Weight
                 # quantization (``quantize``) is orthogonal.
                 import dataclasses as _dc
 
@@ -213,147 +171,21 @@ class TTSEngine:
                 raise EngineError(f"unknown quantize mode {quantize!r}")
             if quantize is not None and mesh is not None:
                 raise EngineError(f"quantize={quantize} with a mesh is unsupported")
-            # The fused Pallas step kernels run in EVERY single-chip config:
-            # quantize=int8/int4 packs reuse the exact quantize_params grid
-            # (the XLA fallback — prefill, batch>1, big buckets — reads the
-            # same values, one numerics per request), and quantize=None
-            # packs bf16 units (bits=16: same kernels, 2x weight bytes, no
-            # quantization anywhere) so the unquantized config is not stuck
-            # at XLA decode speed (round-3 verdict #6).
-            bits = {None: 16, "int8": 8, "int4": 4}[quantize]
-            if mtp_quantize not in (None, "int8", "int4", "auto"):
-                raise EngineError(
-                    f"unknown mtp_quantize mode {mtp_quantize!r}"
-                )
-            # mtp_quantize overrides the MTP trunk's pack precision: at 1.7B
-            # B=32 serving the H=2048 MTP chain reads 15 x ~300 MB of int8
-            # per frame-step (~41% of the frame) — an int4 trunk halves
-            # that.  The 2-token XLA prefix keeps the engine-wide `quantize`
-            # numerics (documented asymmetry, like TP prefill).
-            # "auto" keeps the engine-precision primary pack AND attaches an
-            # int4 ``fused_step_alt`` so the resident chain stays engaged at
-            # batches where the primary trunk overflows VMEM (0.6B int8 is
-            # resident through B=16; B=32 rides the alt — resident_pack()).
-            mtp_bits = bits if mtp_quantize in (None, "auto") else \
-                {"int8": 8, "int4": 4}[mtp_quantize]
-            use_fused = mesh is None and jax.default_backend() == "tpu"
-            if (
-                use_fused
-                and self.cfg.code_predictor.impl == "fused"
-                and mtp_bits != bits
-            ):
-                # mixed-precision trunk: pack from the RAW weights BEFORE
-                # quantize_params rewrites them (int4 pack needs raw arrays)
-                from ..models.code_predictor import prepare_fused_step
-
-                self.params["code_predictor"] = prepare_fused_step(
-                    self.cfg.code_predictor, self.params["code_predictor"],
-                    bits=mtp_bits,
-                )
-            if (
-                mtp_quantize == "auto"
-                and use_fused
-                and self.cfg.code_predictor.impl == "fused"
-                and mtp_bits != 4
-            ):
-                # int4 alt trunk (residency extension): packed from RAW
-                # weights, so it must precede quantize_params like the
-                # mixed-precision branch above
-                from ..models.code_predictor import prepare_fused_step
-
-                self.params["code_predictor"] = prepare_fused_step(
-                    self.cfg.code_predictor, self.params["code_predictor"],
-                    bits=4, alt=True,
-                )
-            if bits == 8:
-                # weight-only int8 for the memory-bound decode (ops/quant.py);
-                # embeddings/vocoder/speaker-encoder stay full precision.
-                # Quantize FIRST: the int8 fused pack reuses the
-                # QuantizedLinear values directly (zero requantization).
+            if quantize is not None:
+                # weight-only int8/int4 for the memory-bound decode
+                # (ops/quant.py); embeddings/vocoder/speaker-encoder stay
+                # full precision.
                 from ..ops.quant import quantize_params
 
-                self.params = quantize_params(self.params)
-            if (
-                self.cfg.code_predictor.impl == "fused"
-                and use_fused
-                and "fused_step" not in self.params["code_predictor"]
-            ):
-                # pre-pack the MTP weights for the fused Pallas step kernel
-                # (TPU only: elsewhere the packed path would run interpreted
-                # and predict_subcodes falls back to the cached impl)
-                from ..models.code_predictor import prepare_fused_step
-
-                self.params["code_predictor"] = prepare_fused_step(
-                    self.cfg.code_predictor, self.params["code_predictor"],
-                    bits=bits,
+                self.params = quantize_params(
+                    self.params, bits={"int8": 8, "int4": 4}[quantize]
                 )
-            if self.cfg.talker.decode_impl == "fused" and use_fused:
-                from ..models.talker import prepare_fused_talker
-
-                self.params["talker"] = prepare_fused_talker(
-                    self.cfg.talker, self.params["talker"], bits=bits
-                )
-            if bits == 4:
-                # int4 pack slices the RAW weights (group-128 grid), so it
-                # must run before quantize_params rewrites them; the XLA
-                # fallback then quantizes the same tensors on the same grid —
-                # identical dequantized values on both paths.
-                from ..ops.quant import quantize_params
-
-                self.params = quantize_params(self.params, bits=4)
             if mesh is not None:
                 # TP over "model" + DP over "data" (parallel/mesh.py rules);
                 # GSPMD propagates KV-cache/activation shardings from these
                 from ..parallel import shard_params as _shard_params
 
-                tp_pack = None
-                cp_tp_pack = None
-                tp = mesh.shape.get("model", 1)
-                if (
-                    tp > 1
-                    and self.cfg.talker.decode_impl == "fused"
-                ):
-                    from ..ops.fused_tp import pack_fused_tp, supports_tp
-
-                    tr = self.cfg.talker.transformer
-                    if supports_tp(tr, tp) and not tr.kv_cache_quant:
-                        # per-shard int8 packs for the shard_map'd per-layer
-                        # fused decode kernels (ops/fused_tp.py); built from
-                        # the RAW layers before sharding, attached after (the
-                        # shard rules don't walk NamedTuples).  Prefill stays
-                        # on the bf16 XLA path (see fused_tp.py docstring).
-                        tp_pack = pack_fused_tp(
-                            tr, self.params["talker"]["transformer"]["layers"],
-                            tp, mesh=mesh,
-                        )
-                if tp > 1 and self.cfg.code_predictor.impl == "fused":
-                    # TP-resident MTP chain (ops/fused_mtp_tp.py): shard the
-                    # trunk so the 1.7B chain (302 MB int8 — never resident
-                    # on one chip) becomes VMEM-resident per chip with
-                    # in-kernel ICI all-reduces; predict_subcodes routes to
-                    # it when this pack is attached (B=1 sequential decode).
-                    from ..ops.fused_mtp_tp import supports_tp_resident
-
-                    cpt = self.cfg.code_predictor
-                    if (
-                        cpt.head_mode == "per_step"
-                        and supports_tp_resident(
-                            cpt.transformer, tp, cpt.num_steps,
-                            cpt.subcode_vocab_size,
-                        )
-                    ):
-                        from ..ops.fused_tp import pack_fused_tp as _pftp
-
-                        cp_tp_pack = _pftp(
-                            cpt.transformer,
-                            self.params["code_predictor"]["transformer"]["layers"],
-                            tp, mesh=mesh,
-                        )
                 self.params = _shard_params(mesh, self.params)
-                if tp_pack is not None:
-                    self.params["talker"]["fused_tp"] = tp_pack
-                if cp_tp_pack is not None:
-                    self.params["code_predictor"]["fused_tp"] = cp_tp_pack
             self._ready = True
         except Exception as e:  # record, don't raise (reference ctor contract)
             self._error = str(e)
@@ -551,8 +383,7 @@ class TTSEngine:
     def warmup(self, language: str = "auto", languages=None,
                text_buckets=None) -> float:
         """Pre-compile the programs a serving deployment will hit, so first
-        requests don't pay compile cliffs (measured 40-100 s first-request
-        wall on v5e vs ~60 ms TTFA warm).
+        requests don't pay compile time.
 
         Runs one full-length synthesis per declared (text-bucket, language)
         signature (covers prefill, the TTFA first chunk, steady-state
@@ -645,13 +476,11 @@ class TTSEngine:
             self._fns_cache[key] = make_generate_fns(
                 self.cfg,
                 batch=batch,
-                params=self.params,
                 max_len=kv_bucket,
                 chunk_len=chunk_len,
                 lang_id=lang_id,
                 has_speaker=has_speaker,
                 has_instruct=i_bucket > 0,
-                mesh=self.mesh,
             )
         return self._fns_cache[key]
 
@@ -711,7 +540,7 @@ class TTSEngine:
                 self.cfg, max_len=max_len, k=self.spec_k,
                 num_iters=num_iters, batch=batch, lang_id=lang_id,
                 has_speaker=has_speaker, has_instruct=i_bucket > 0,
-                draft_fn=draft_fn, params=self.params,
+                draft_fn=draft_fn,
             )
         return self._fns_cache[key]
 
@@ -916,13 +745,9 @@ class TTSEngine:
 
         ckey = ("spec2seq", self.kv_ladder[bidx])
         if ckey not in self._fns_cache:
-            from ..runtime.generate import resident_jit_options
-
             cfg = self.cfg
             self._fns_cache[ckey] = jax.jit(
-                lambda p, s, tr, tl, pad: spec_to_seq(cfg, p, s, tr, tl, pad),
-                compiler_options=resident_jit_options(
-                    cfg, batch=1, params=self.params),
+                lambda p, s, tr, tl, pad: spec_to_seq(cfg, p, s, tr, tl, pad)
             )
         state = self._fns_cache[ckey](
             self.params, spec_state, bundle.trailing, bundle.trailing_len,

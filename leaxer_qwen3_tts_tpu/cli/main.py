@@ -1,5 +1,5 @@
 """CLI: flag-for-flag parity with the reference (main_onnx.cpp:60-192), plus
-TPU-framework extensions (--seed for determinism, --speaker presets,
+framework extensions (--seed for determinism, --speaker presets,
 --stream to write audio incrementally, --verbose metrics).
 
 Behavioral parity points: default output `output.wav`; unknown --lang falls
@@ -20,7 +20,7 @@ import sys
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="leaxer-qwen3-tts-tpu",
-        description="Qwen3-TTS TPU-native inference",
+        description="Qwen3-TTS inference (JAX/XLA)",
     )
     p.add_argument("-m", "--model", help="model checkpoint directory (required)")
     p.add_argument("-p", "--prompt", help="text to synthesize (required)")
@@ -43,27 +43,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--quantize", choices=["int8", "int4"],
         help="weight-only quantization for faster decode",
-    )
-    p.add_argument(
-        "--mtp-quantize", choices=["int8", "int4", "auto"],
-        help="override the MTP trunk's fused-pack precision (int4 halves "
-             "the dominant weight stream of large-batch 1.7B serving); "
-             "'auto' keeps the --quantize precision AND attaches an int4 "
-             "alt trunk so the resident MTP kernel stays engaged at B=32; "
-             "defaults to --quantize",
-    )
-    p.add_argument(
-        "--mtp-resident", choices=["on", "off"],
-        help="pin the resident-trunk MTP chain kernel (all 15 sub-code "
-             "steps in one kernel, trunk VMEM-resident; ops/fused_mtp.py); "
-             "default: on for TPU; QTTS_MTP_RESIDENT env overrides",
-    )
-    p.add_argument(
-        "--frame-fused", choices=["on", "off"],
-        help="pin the whole-frame fused kernel (code0 sample + resident "
-             "MTP chain + talker step + lm_head in ONE dispatch per frame; "
-             "ops/fused_frame.py, sequential B=1 only); default: "
-             "QTTS_FRAME_FUSED env",
     )
     p.add_argument(
         "--kv-quant", action="store_true",
@@ -120,14 +99,11 @@ def main(argv=None) -> int:
     from ..api.engine import TTSEngine
     from ..config import SAMPLE_RATE
     from ..frontend import write_wav
+    from ..utils.compile_cache import enable_compile_cache
 
+    enable_compile_cache()
     engine = TTSEngine(args.model, max_frames=args.max_tokens, quantize=args.quantize,
-                       spec_k=args.spec_k, kv_quant=args.kv_quant,
-                       mtp_quantize=args.mtp_quantize,
-                       mtp_resident=(None if args.mtp_resident is None
-                                     else args.mtp_resident == "on"),
-                       frame_fused=(None if args.frame_fused is None
-                                    else args.frame_fused == "on"))
+                       spec_k=args.spec_k, kv_quant=args.kv_quant)
     if not engine.is_ready():
         print(f"Error: {engine.get_error()}", file=sys.stderr)
         return 1

@@ -1,4 +1,4 @@
-"""Model / runtime configuration for the TPU-native Qwen3-TTS framework.
+"""Model / runtime configuration for the JAX Qwen3-TTS framework.
 
 Mirrors the capability surface of the reference engine's compile-time constants
 (reference: src/tts_onnx.h:29-70 ``namespace config``) but as runtime dataclasses so
@@ -110,7 +110,6 @@ class TransformerConfig:
     dtype: str = "bfloat16"
     # QK RMSNorm per head (Qwen3 style)
     use_qk_norm: bool = True
-    attn_impl: str = "xla"  # "xla" | "pallas"
     # int8 KV cache with per-slot-per-head scales (models/layers.py KVCache):
     # halves the cache bytes that bind B>=16 serving and long-form decode.
     # Runtime choice (engine --kv-quant flips the talker's flag); checkpoints
@@ -141,14 +140,6 @@ class TalkerConfig:
     transformer: TransformerConfig = TransformerConfig()
     codec_vocab_size: int = 3072  # codebook-0 tokens 0..2047 + control 2048..3071
     text_vocab_size: int = 151936  # Qwen2.5/Qwen3 BPE text vocab
-    # decode-step implementation: "xla" or "fused" (one Pallas kernel per
-    # step, ops/fused_step.py; batch 1 on TPU).  The kernel keeps K/V blocks
-    # VMEM-resident up to 512 slots and switches to an HBM-resident cache
-    # with windowed DMA beyond that.  The DMA variant's K/V scratch must
-    # still fit VMEM (16 MB/core: measured OK at 1024 slots, OOM at 2080),
-    # hence the cap — larger buckets use the XLA path.
-    decode_impl: str = "xla"
-    fused_max_cache: int = 1100
     # text_project: Embed(text_vocab, text_embed_dim) -> Dense(hidden).  If
     # text_embed_dim == hidden_size the Dense is still applied (projection is part
     # of the reference text_project.onnx contract, tts_onnx.cpp:545-559).
@@ -190,12 +181,6 @@ class CodePredictorConfig:
     # "cached": incremental KV per step; "dense": re-run the tiny <=17-token
     # sequence each step (same HBM bytes, fewer ops — see predict_subcodes_dense)
     impl: str = "cached"
-    # resident-trunk chain (ops/fused_mtp.py) under impl="fused":
-    # None = QTTS_MTP_RESIDENT env (default: ON on TPU — hardware-
-    # validated 2026-08-18 — OFF elsewhere);
-    # True/False pins it (engine --mtp-resident).  Only engages when the
-    # packed trunk fits the VMEM budget (supports_resident).
-    resident: "bool | None" = None
 
 
 @dataclass(frozen=True)
@@ -349,13 +334,6 @@ class TTSModelConfig:
     speaker_encoder: Optional[SpeakerEncoderConfig] = SpeakerEncoderConfig()
     mel: MelConfig = MelConfig()
     draft: Optional[DraftConfig] = None
-    # whole-frame fused decode (ops/fused_frame.py): ONE Pallas dispatch per
-    # 12 Hz frame — code0 suppress+sample, the resident MTP chain, the next-
-    # input sum and the manual-DMA talker step + lm_head all in-kernel.
-    # None = QTTS_FRAME_FUSED env (default off until hardware-validated);
-    # True/False pins it.  Sequential B=1 only; engages when the talker is
-    # fused-eligible (vmem bucket) and the MTP trunk passes supports_resident.
-    frame_fused: "bool | None" = None
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2)
@@ -395,18 +373,17 @@ class TTSModelConfig:
                     kwargs[f.name] = tuple(v)
                 else:
                     kwargs[f.name] = v
+            if tp is CodePredictorConfig and kwargs.get("impl") == "fused":
+                # configs saved when a kernel chain existed: the chain it
+                # named computed what the cached scan computes
+                kwargs["impl"] = "cached"
             return tp(**kwargs)
 
         return build(cls, raw)
 
 
 # Convenience preset: the 0.6B-Base model (the reference's only wired variant).
-# The MTP runs as the fused Pallas step kernel on TPU (ops/fused_step.py;
-# engines fall back to the cached path off-TPU or at batch > 1).
-QWEN3_TTS_06B = TTSModelConfig(
-    talker=TalkerConfig(decode_impl="fused"),
-    code_predictor=CodePredictorConfig(impl="fused"),
-)
+QWEN3_TTS_06B = TTSModelConfig()
 
 # 1.7B-class variant (VoiceDesign / CustomVoice scale: wider talker).  Preset
 # speakers (reference Speaker enum, tts_onnx.h:82-93) attach to this family.
@@ -422,7 +399,6 @@ QWEN3_TTS_17B = TTSModelConfig(
             intermediate_size=6144,
         ),
         text_embed_dim=2048,
-        decode_impl="fused",  # H=2048 units, ops/fused_step.py
     ),
     code_predictor=CodePredictorConfig(
         transformer=TransformerConfig(
@@ -433,7 +409,6 @@ QWEN3_TTS_17B = TTSModelConfig(
             head_dim=128,
             intermediate_size=6144,
         ),
-        impl="fused",
     ),
 )
 

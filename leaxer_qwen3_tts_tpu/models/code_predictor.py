@@ -29,7 +29,6 @@ from .layers import (
     KVCache,
     init_kv_cache,
     init_transformer_params,
-    rms_norm,
     transformer_forward,
 )
 
@@ -95,66 +94,6 @@ def _step_cond(cfg: CodePredictorConfig, params: dict):
     return jnp.float32(0.0), lambda emb, j: emb
 
 
-def _resident_enabled() -> bool:
-    """Resident-trunk MTP chain (ops/fused_mtp.py) for fused decode when
-    the packed trunk fits VMEM.  Default ON on TPU — hardware-validated
-    2026-08-18 (tools/manual_probe.py --resident: greedy agreement 1.0 vs
-    per-step, B=1 1.28 vs 2.60 ms/chain, wins at every batch; full bench
-    2.32 vs 3.11 ms/frame — docs/ROUND4_RESULTS.md).  OFF elsewhere: the
-    CPU interpret path is a numerics-test surface, far slower than the
-    XLA per-step kernels.  QTTS_MTP_RESIDENT overrides either way."""
-    import os
-
-    v = os.environ.get("QTTS_MTP_RESIDENT")
-    if v is not None:
-        return v != "0"
-    import jax
-
-    return jax.default_backend() == "tpu"
-
-
-def _stream_enabled() -> bool:
-    """Streamed-trunk MTP chain (ops/fused_mtp_stream.py) for B=1 fused
-    decode when the trunk is too large for VMEM residency (1.7B
-    single-chip).  Default ON on TPU — hardware-validated 2026-08-19
-    (tools/manual_probe.py --stream/--streamdiag: int4 trunk 5.74 vs 7.14
-    ms/chain, int8 a wash at ~7.5; streamed == resident BIT-FOR-BIT,
-    greedy and sampled, at every ring depth on the shape both kernels
-    run).  OFF elsewhere — the CPU interpret path is a numerics surface.
-    QTTS_MTP_STREAM overrides either way."""
-    import os
-
-    v = os.environ.get("QTTS_MTP_STREAM")
-    if v is not None:
-        return v != "0"
-    import jax
-
-    return jax.default_backend() == "tpu"
-
-
-def resident_pack(params: dict, batch: int):
-    """The trunk pack the resident chain should use at this batch, or None.
-
-    ``fused_step`` is the engine's primary pack.  ``fused_step_alt`` (when
-    attached — engine ``mtp_quantize="auto"``) is a LOWER-precision trunk
-    pack used only to extend VMEM residency to batches where the primary
-    pack's gate fails: the 0.6B int8 trunk is resident through B=16 but
-    B=32 needs the int4 pack (measured: B=32 serving 395.8 -> 514.0x
-    aggregate RTF, docs/BENCH_EVIDENCE_r4.md).  Single-stream and small
-    batches keep the primary pack — int4's per-group unpack costs more
-    than its halved bytes save when the read isn't batch-amortized
-    (docs/ROUND4_RESULTS.md, the 1.7B int4 serving negative result)."""
-    from ..ops.fused_mtp import supports_resident
-
-    fw = params.get("fused_step")
-    if fw is not None and supports_resident(fw, batch=batch):
-        return fw
-    alt = params.get("fused_step_alt")
-    if alt is not None and supports_resident(alt, batch=batch):
-        return alt
-    return None
-
-
 def predict_subcodes(
     cfg: CodePredictorConfig,
     params: dict,
@@ -163,8 +102,6 @@ def predict_subcodes(
     code0_embed: jax.Array,  # [B, H] — codec_embed(code0)
     key: jax.Array,
     sample_fn: Callable[[jax.Array, jax.Array], jax.Array],  # (key, logits[B,V]) -> [B] int32
-    sp=None,  # SamplingParams — enables the resident-chain kernel (B=1)
-    mesh=None,  # TP mesh — enables the TP-resident chain (fused_tp pack)
 ) -> Tuple[jax.Array, jax.Array]:
     """Runs the 15-step MTP loop for one frame.
 
@@ -175,66 +112,26 @@ def predict_subcodes(
         return predict_subcodes_dense(
             cfg, params, pred_embed_tables, last_hidden, code0_embed, key, sample_fn
         )
-    resident_on = (
-        cfg.resident if cfg.resident is not None else _resident_enabled()
-    ) and cfg.head_mode == "per_step"  # the resident kernels bake the
-    # step-indexed heads; the shared-head fallback rides the fused per-step
-    # kernels (its head matmul is XLA-side either way)
-    if (
-        cfg.impl == "fused"
-        and mesh is not None
-        and sp is not None
-        and resident_on
-        and "fused_tp" in params
-        and last_hidden.shape[0] == 1
-    ):
-        # TP-resident chain (ops/fused_mtp_tp.py): the trunk SHARD is
-        # VMEM-resident per chip with in-kernel ICI all-reduces — the 1.7B
-        # residency path (engine attaches "fused_tp" only when
-        # supports_tp_resident passes).  Like the single-chip resident
-        # chain, sampling runs in-kernel from precomputed Gumbel noise.
-        return predict_subcodes_tp_resident(
-            cfg, params, pred_embed_tables, last_hidden, code0_embed,
-            key, sp, mesh,
-        )
-    if cfg.impl == "fused" and "fused_step" in params and last_hidden.shape[0] == 1:
-        if sp is not None and resident_on:
-            fw = resident_pack(params, 1)
-            if fw is not None:
-                return predict_subcodes_resident(
-                    cfg, params, pred_embed_tables, last_hidden, code0_embed,
-                    key, sp, fw=fw,
-                )
-            # trunk too large for VMEM residency (the 1.7B single-chip
-            # case): the STREAMED chain keeps the per-step path's weight
-            # traffic but deletes the 15 dispatches of XLA glue — one
-            # kernel, trunk ring-DMA'd per chain position, in-kernel
-            # sampling (ops/fused_mtp_stream.py)
-            if _stream_enabled():
-                from ..ops.fused_mtp_stream import supports_stream
+    subcodes, sub_sum, _ = mtp_chain(
+        cfg, params, pred_embed_tables, last_hidden, code0_embed, key, sample_fn
+    )
+    return subcodes, sub_sum
 
-                if supports_stream(
-                    params["fused_step"], cfg.num_steps,
-                    cfg.subcode_vocab_size,
-                ):
-                    return predict_subcodes_streamed(
-                        cfg, params, pred_embed_tables, last_hidden,
-                        code0_embed, key, sp,
-                    )
-        return predict_subcodes_fused(
-            cfg, params, pred_embed_tables, last_hidden, code0_embed, key, sample_fn
-        )
-    if cfg.impl == "fused" and "fused_step" in params and 2 <= last_hidden.shape[0] <= 32:
-        if sp is not None and resident_on:
-            fw = resident_pack(params, last_hidden.shape[0])
-            if fw is not None:
-                return predict_subcodes_resident_batched(
-                    cfg, params, pred_embed_tables, last_hidden, code0_embed,
-                    key, sp, fw=fw,
-                )
-        return predict_subcodes_fused_batched(
-            cfg, params, pred_embed_tables, last_hidden, code0_embed, key, sample_fn
-        )
+
+def mtp_chain(
+    cfg: CodePredictorConfig,
+    params: dict,
+    pred_embed_tables: jax.Array,
+    last_hidden: jax.Array,
+    code0_embed: jax.Array,
+    key: jax.Array,
+    sample_fn: Callable[[jax.Array, jax.Array], jax.Array],
+) -> Tuple[jax.Array, jax.Array, jax.Array]:
+    """The cached (incremental-KV) chain behind ``impl="cached"``.
+
+    Returns (subcodes [B, n], sub_embed_sum [B, H], logits [B, n, V] f32);
+    the per-step logits are what the reference comparison reads (unused
+    outputs of the scan are dropped when compiled)."""
     t = cfg.transformer
     B, H = last_hidden.shape
     n = cfg.num_steps
@@ -275,10 +172,10 @@ def predict_subcodes(
             cond(emb_j, j)[:, None, :].astype(t.jnp_dtype),
             pos[:, None], cache, valid,
         )
-        return (hidden[:, 0], cache, valid, key), (subcode_j, emb_j)
+        return (hidden[:, 0], cache, valid, key), (subcode_j, emb_j, logits_j)
 
     # steps 0..n-2 advance the transformer; the final step only samples
-    (h_last, cache, valid, key), (subcodes, embs) = lax.scan(
+    (h_last, cache, valid, key), (subcodes, embs, logits) = lax.scan(
         step, (h_last, cache, valid, key), jnp.arange(n - 1, dtype=jnp.int32)
     )
     key, sub = split_keys(key, 2)
@@ -289,7 +186,10 @@ def predict_subcodes(
     subcodes = jnp.moveaxis(subcodes, 0, 1)  # [B, n-1]
     subcodes = jnp.concatenate([subcodes, subcode_last[:, None]], axis=1)  # [B, n]
     sub_sum = jnp.sum(embs, axis=0) + emb_last  # [B, H]
-    return subcodes, sub_sum.astype(last_hidden.dtype)
+    logits = jnp.concatenate(
+        [jnp.moveaxis(logits, 0, 1), logits_last[:, None]], axis=1
+    )  # [B, n, V]
+    return subcodes, sub_sum.astype(last_hidden.dtype), logits
 
 
 def predict_subcodes_dense(
@@ -348,388 +248,4 @@ def predict_subcodes_dense(
     )
     subcodes = jnp.moveaxis(subcodes, 0, 1)  # [B, n]
     sub_sum = jnp.sum(embs, axis=0)  # [B, H]
-    return subcodes, sub_sum.astype(last_hidden.dtype)
-
-
-def prepare_fused_step(
-    cfg: CodePredictorConfig, cp_params: dict, bits: int = 8,
-    alt: bool = False,
-) -> dict:
-    """Attach pre-packed fused-step weights (ops/fused_step.py) when the
-    architecture qualifies; returns the (possibly extended) params dict.
-
-    ``alt=True`` writes the pack to ``fused_step_alt`` instead — the
-    lower-precision residency-extension trunk (engine mtp_quantize="auto"):
-    resident_pack() falls back to it at batches where the primary pack's
-    VMEM gate fails (0.6B int8 is resident through B=16; B=32 needs int4)."""
-    from ..ops.fused_step import pack_fused_weights, supports
-
-    if not supports(cfg.transformer):
-        return cp_params
-    out = dict(cp_params)
-    out["fused_step_alt" if alt else "fused_step"] = pack_fused_weights(
-        cfg.transformer, cp_params["transformer"]["layers"], bits=bits
-    )
-    return out
-
-
-def predict_subcodes_fused(
-    cfg: CodePredictorConfig,
-    params: dict,
-    pred_embed_tables: jax.Array,
-    last_hidden: jax.Array,  # [1, H]
-    code0_embed: jax.Array,
-    key: jax.Array,
-    sample_fn: Callable[[jax.Array, jax.Array], jax.Array],
-) -> Tuple[jax.Array, jax.Array]:
-    """Single-Pallas-kernel-per-step variant (batch 1): the whole 6-layer
-    incremental step runs as ONE kernel (ops/fused_step.py) instead of ~20
-    XLA fusions per layer.  Prefix (2 tokens) stays on the XLA path."""
-    from ..ops.fused_step import fused_decode_step
-
-    t = cfg.transformer
-    B, H = last_hidden.shape
-    n = cfg.num_steps
-    interpret = jax.default_backend() != "tpu"
-
-    cache = init_kv_cache(t, B, cfg.max_seq_len)
-    valid = jnp.zeros((B, cfg.max_seq_len), bool)
-    head_logits = _head_fn(cfg, params)
-    c0_add, cond = _step_cond(cfg, params)
-    prefix = jnp.stack(
-        [
-            last_hidden.astype(t.jnp_dtype),
-            (code0_embed + c0_add).astype(t.jnp_dtype),
-        ],
-        axis=1,
-    )
-    positions = jnp.broadcast_to(jnp.arange(2, dtype=jnp.int32), (B, 2))
-    hidden, cache, valid = transformer_forward(
-        t, params["transformer"], prefix, positions, cache, valid
-    )
-    h_last = hidden[:, 1]
-
-    fw = params["fused_step"]
-    fnorm = params["transformer"]["final_norm"]
-
-    def step(carry, j):
-        h_prev, kc, vc, key = carry
-        key, sub = split_keys(key, 2)
-        logits_j = head_logits(h_prev, j)
-        subcode_j = sample_fn(sub, logits_j)
-        table = lax.dynamic_index_in_dim(pred_embed_tables, j, axis=0, keepdims=False)
-        emb_j = jnp.take(table, subcode_j, axis=0)  # [1, H]
-
-        x_out, kc, vc = fused_decode_step(
-            t, fw, cond(emb_j, j), 2 + j, kc, vc, interpret=interpret
-        )
-        # final norm (the kernel emits the pre-norm residual stream)
-        h_new = rms_norm(x_out, fnorm, t.rms_norm_eps).astype(h_prev.dtype)
-        return (h_new, kc, vc, key), (subcode_j, emb_j)
-
-    (h_last, kc, vc, key), (subcodes, embs) = lax.scan(
-        step, (h_last, cache.k, cache.v, key), jnp.arange(n - 1, dtype=jnp.int32)
-    )
-    key, sub = split_keys(key, 2)
-    logits_last = head_logits(h_last, n - 1)
-    subcode_last = sample_fn(sub, logits_last)
-    emb_last = jnp.take(pred_embed_tables[n - 1], subcode_last, axis=0)
-
-    subcodes = jnp.moveaxis(subcodes, 0, 1)
-    subcodes = jnp.concatenate([subcodes, subcode_last[:, None]], axis=1)
-    sub_sum = jnp.sum(embs, axis=0) + emb_last
-    return subcodes, sub_sum.astype(last_hidden.dtype)
-
-
-def predict_subcodes_resident(
-    cfg: CodePredictorConfig,
-    params: dict,
-    pred_embed_tables: jax.Array,
-    last_hidden: jax.Array,  # [1, H]
-    code0_embed: jax.Array,
-    key: jax.Array,  # [2] or per-row [1, 2]
-    sp,  # SamplingParams (scalar or [1] knobs)
-    fw=None,  # pack override (resident_pack); default params["fused_step"]
-) -> Tuple[jax.Array, jax.Array]:
-    """Resident-trunk chain: the whole 15-step loop — 2-token prefix
-    included — is ONE Pallas kernel (ops/fused_mtp.py) with the 6-layer
-    trunk held in VMEM and the sampler run in-kernel from precomputed
-    Gumbel noise.  Sampled outputs are a different (still per-seed
-    deterministic) random stream than the per-step path — see the
-    fused_mtp module docstring."""
-    import os
-
-    if fw is None:
-        fw = params["fused_step"]
-    if os.environ.get("QTTS_MTP_B1_ONEHOT") == "1":
-        # hardware escape hatch: route B=1 through the batched kernel's
-        # one-hot/streamed-table gather instead of the computed-index
-        # embed-row DMA.  Same per-step noise chain (split(key, n) ->
-        # gumbel over V), so results are bit-equal; only the gather
-        # transport differs (tested).
-        return predict_subcodes_resident_batched(
-            cfg, params, pred_embed_tables, last_hidden, code0_embed, key,
-            sp, fw=fw,
-        )
-    from ..ops.fused_mtp import fused_mtp_chain
-
-    t = cfg.transformer
-    B, H = last_hidden.shape
-    n = cfg.num_steps
-    V = cfg.subcode_vocab_size
-    interpret = jax.default_backend() != "tpu"
-
-    k = key[0] if key.ndim == 2 else key
-    gkeys = jax.random.split(k, n)
-    gumbel = jax.vmap(lambda kk: jax.random.gumbel(kk, (1, V), jnp.float32))(
-        gkeys
-    )  # [n, 1, V]
-
-    subcodes, sub_sum = fused_mtp_chain(
-        t,
-        fw,
-        params["transformer"]["final_norm"],
-        params["heads"],
-        pred_embed_tables,
-        last_hidden,
-        code0_embed,
-        gumbel,
-        sp.temperature,
-        sp.top_k,
-        sp.top_p,
-        interpret=interpret,
-        cache_dtype=t.jnp_dtype,
-    )
-    return subcodes, sub_sum.astype(last_hidden.dtype)
-
-
-def predict_subcodes_streamed(
-    cfg: CodePredictorConfig,
-    params: dict,
-    pred_embed_tables: jax.Array,
-    last_hidden: jax.Array,  # [1, H]
-    code0_embed: jax.Array,
-    key: jax.Array,  # [2] or per-row [1, 2]
-    sp,  # SamplingParams (scalar or [1] knobs)
-    ring: "int | None" = None,  # DMA ring depth override (probes)
-) -> Tuple[jax.Array, jax.Array]:
-    """Streamed-trunk chain: the whole 15-step loop — prefix included — is
-    ONE Pallas kernel (ops/fused_mtp_stream.py) with the trunk units
-    ring-DMA'd from HBM per chain position (residency impossible — the
-    1.7B trunk exceeds VMEM) and the sampler run in-kernel.  Outputs are
-    IDENTICAL to the resident chain's on the same inputs (same noise
-    chain, same op order; only the weight transport differs)."""
-    from ..ops.fused_mtp_stream import fused_mtp_chain_streamed
-    from ..ops.fused_step import _ring
-
-    t = cfg.transformer
-    n = cfg.num_steps
-    V = cfg.subcode_vocab_size
-    interpret = jax.default_backend() != "tpu"
-    if ring is None:
-        ring = _ring()
-
-    k = key[0] if key.ndim == 2 else key
-    gkeys = jax.random.split(k, n)
-    gumbel = jax.vmap(lambda kk: jax.random.gumbel(kk, (1, V), jnp.float32))(
-        gkeys
-    )  # [n, 1, V]
-
-    subcodes, sub_sum = fused_mtp_chain_streamed(
-        t,
-        params["fused_step"],
-        params["transformer"]["final_norm"],
-        params["heads"],
-        pred_embed_tables,
-        last_hidden,
-        code0_embed,
-        gumbel,
-        sp.temperature,
-        sp.top_k,
-        sp.top_p,
-        ring=ring,
-        interpret=interpret,
-    )
-    return subcodes, sub_sum.astype(last_hidden.dtype)
-
-
-def predict_subcodes_tp_resident(
-    cfg: CodePredictorConfig,
-    params: dict,
-    pred_embed_tables: jax.Array,
-    last_hidden: jax.Array,  # [1, H]
-    code0_embed: jax.Array,
-    key: jax.Array,  # [2] or per-row [1, 2]
-    sp,  # SamplingParams (scalar or [1] knobs)
-    mesh,
-) -> Tuple[jax.Array, jax.Array]:
-    """TP-sharded resident chain: the whole 15-step loop runs as ONE Pallas
-    kernel per chip on the Megatron shard held in VMEM, with the per-layer
-    partial sums and head logits all-reduced over ICI IN-KERNEL
-    (ops/fused_mtp_tp.py).  This is the 1.7B residency path — the int8
-    trunk that overflows single-chip VMEM (302 MB) fits at TP=4
-    (~76 MB/chip), turning 15 HBM re-reads/frame into resident ingest.
-
-    The ``fused_tp`` pack (ops/fused_tp.FusedTPWeights) is attached by the
-    engine when ``supports_tp_resident`` passes.  Gumbel noise is
-    replicated so every chip samples the identical sub-code; the sampled
-    stream matches the single-chip resident chain's (same split(key, n) →
-    gumbel-over-V chain)."""
-    from ..ops.fused_mtp_tp import fused_mtp_chain_tp
-
-    t = cfg.transformer
-    n = cfg.num_steps
-    V = cfg.subcode_vocab_size
-    tp = mesh.shape.get("model", 1)
-    interpret = jax.default_backend() != "tpu"
-
-    k = key[0] if key.ndim == 2 else key
-    gkeys = jax.random.split(k, n)
-    gumbel = jax.vmap(lambda kk: jax.random.gumbel(kk, (1, V), jnp.float32))(
-        gkeys
-    )  # [n, 1, V]
-
-    subcodes, sub_sum = fused_mtp_chain_tp(
-        t,
-        tp,
-        mesh,
-        params["fused_tp"],
-        params["transformer"]["final_norm"],
-        params["heads"],
-        pred_embed_tables,
-        last_hidden,
-        code0_embed,
-        gumbel,
-        sp.temperature,
-        sp.top_k,
-        sp.top_p,
-        interpret=interpret,
-    )
-    return subcodes, sub_sum.astype(last_hidden.dtype)
-
-
-def predict_subcodes_resident_batched(
-    cfg: CodePredictorConfig,
-    params: dict,
-    pred_embed_tables: jax.Array,
-    last_hidden: jax.Array,  # [B, H], 2 <= B <= 32
-    code0_embed: jax.Array,
-    key: jax.Array,  # [2] shared chain or [B, 2] per-row chains
-    sp,  # SamplingParams (scalar or [B] knobs)
-    fw=None,  # pack override (resident_pack); default params["fused_step"]
-) -> Tuple[jax.Array, jax.Array]:
-    """Batched resident chain (ops/fused_mtp.fused_mtp_chain_batched): the
-    trunk loads ONCE for the whole batch's 15 steps — prefix included —
-    so the serving batch's dominant weight read collapses (15 x trunk ->
-    trunk + heads + tables).  Per-row keys give each slot its own noise
-    chain (pool occupancy invariance); a scalar key draws one shared
-    [B, V] noise block per step like the multi-dispatch path's shared
-    categorical."""
-    from ..ops.fused_mtp import fused_mtp_chain_batched
-
-    if fw is None:
-        fw = params["fused_step"]
-
-    t = cfg.transformer
-    B, H = last_hidden.shape
-    n = cfg.num_steps
-    V = cfg.subcode_vocab_size
-    interpret = jax.default_backend() != "tpu"
-
-    if key.ndim == 2:  # [B, 2]: row b's noise from row b's chain only
-        ks = jax.vmap(lambda kk: jax.random.split(kk, n))(key)  # [B, n, 2]
-        gumbel = jax.vmap(
-            jax.vmap(lambda kk: jax.random.gumbel(kk, (V,), jnp.float32))
-        )(ks)  # [B, n, V]
-        gumbel = jnp.moveaxis(gumbel, 0, 1)  # [n, B, V]
-    else:
-        ks = jax.random.split(key, n)
-        gumbel = jax.vmap(
-            lambda kk: jax.random.gumbel(kk, (B, V), jnp.float32)
-        )(ks)
-
-    subcodes, sub_sum = fused_mtp_chain_batched(
-        t,
-        fw,
-        params["transformer"]["final_norm"],
-        params["heads"],
-        pred_embed_tables,
-        last_hidden,
-        code0_embed,
-        gumbel,
-        sp.temperature,
-        sp.top_k,
-        sp.top_p,
-        interpret=interpret,
-        cache_dtype=t.jnp_dtype,
-    )
-    return subcodes, sub_sum.astype(last_hidden.dtype)
-
-
-def predict_subcodes_fused_batched(
-    cfg: CodePredictorConfig,
-    params: dict,
-    pred_embed_tables: jax.Array,
-    last_hidden: jax.Array,  # [B, H], 2 <= B <= 32
-    code0_embed: jax.Array,
-    key: jax.Array,
-    sample_fn: Callable[[jax.Array, jax.Array], jax.Array],
-) -> Tuple[jax.Array, jax.Array]:
-    """Batched fused MTP: one Pallas kernel per incremental step for the whole
-    serving batch (ops/fused_step.fused_decode_step_batched, bvmem mode — the
-    17-slot MTP cache fits VMEM at any supported B).  Weights stream ONCE per
-    step for all B streams."""
-    from ..ops.fused_step import fused_decode_step_batched
-
-    t = cfg.transformer
-    B, H = last_hidden.shape
-    n = cfg.num_steps
-    interpret = jax.default_backend() != "tpu"
-
-    cache = init_kv_cache(t, B, cfg.max_seq_len)
-    valid = jnp.zeros((B, cfg.max_seq_len), bool)
-    head_logits = _head_fn(cfg, params)
-    c0_add, cond = _step_cond(cfg, params)
-    prefix = jnp.stack(
-        [
-            last_hidden.astype(t.jnp_dtype),
-            (code0_embed + c0_add).astype(t.jnp_dtype),
-        ],
-        axis=1,
-    )
-    positions = jnp.broadcast_to(jnp.arange(2, dtype=jnp.int32), (B, 2))
-    hidden, cache, valid = transformer_forward(
-        t, params["transformer"], prefix, positions, cache, valid
-    )
-    h_last = hidden[:, 1]
-
-    fw = params["fused_step"]
-    fnorm = params["transformer"]["final_norm"]
-
-    def step(carry, j):
-        h_prev, kc, vc, key = carry
-        key, sub = split_keys(key, 2)
-        logits_j = head_logits(h_prev, j)
-        subcode_j = sample_fn(sub, logits_j)  # [B]
-        table = lax.dynamic_index_in_dim(pred_embed_tables, j, axis=0, keepdims=False)
-        emb_j = jnp.take(table, subcode_j, axis=0)  # [B, H]
-
-        pos = jnp.full((B,), 2 + j, jnp.int32)
-        x_out, kc, vc = fused_decode_step_batched(
-            t, fw, cond(emb_j, j), pos, kc, vc, interpret=interpret
-        )
-        h_new = rms_norm(x_out, fnorm, t.rms_norm_eps).astype(h_prev.dtype)
-        return (h_new, kc, vc, key), (subcode_j, emb_j)
-
-    (h_last, kc, vc, key), (subcodes, embs) = lax.scan(
-        step, (h_last, cache.k, cache.v, key), jnp.arange(n - 1, dtype=jnp.int32)
-    )
-    key, sub = split_keys(key, 2)
-    logits_last = head_logits(h_last, n - 1)
-    subcode_last = sample_fn(sub, logits_last)
-    emb_last = jnp.take(pred_embed_tables[n - 1], subcode_last, axis=0)
-
-    subcodes = jnp.moveaxis(subcodes, 0, 1)
-    subcodes = jnp.concatenate([subcodes, subcode_last[:, None]], axis=1)
-    sub_sum = jnp.sum(embs, axis=0) + emb_last
     return subcodes, sub_sum.astype(last_hidden.dtype)

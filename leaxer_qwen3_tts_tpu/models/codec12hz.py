@@ -3,10 +3,10 @@
 I/O contract per the reference's tokenizer12hz_decode.onnx (tts_onnx.cpp:759-776):
 codes i64 [B, frames, 16] -> audio f32 [B, frames * 2000] (+ valid lengths).
 
-Architecture (TPU-first, weights-compatible via the converter's name mapping):
+Architecture (weights-compatible via the converter's name mapping):
   * 16 codebook embedding tables, summed per frame -> [B, F, D]
   * prenet: ConvNeXt-style causal blocks at frame rate (depthwise causal conv +
-    pointwise MLP) — all matmul-shaped for the MXU
+    pointwise MLP) — all matmul-shaped
   * upsampling stages: causal conv (k=3) producing rate*channels, reshaped
     (sub-pixel / "pixel-shuffle") to rate x length — an exactly-causal
     transposed conv that lowers to one large matmul per stage

@@ -4,7 +4,7 @@ One unified code path serves prefill and decode: every forward writes the new
 K/V into a static, device-resident cache at ``cache_len`` and attends over the
 whole (masked) cache.  This deletes the reference's per-step host<->device KV
 round-trips (reference tts_onnx.cpp:684-729 copies 28 layers of KV both ways on
-every decode step); here the cache never leaves HBM and the update is a
+every decode step); here the cache never leaves device memory and the update is a
 ``lax.dynamic_update_slice`` inside the jitted step.
 
 Layer stack is scanned (``lax.scan`` over stacked per-layer params) so 28 layers
@@ -21,7 +21,7 @@ import jax.numpy as jnp
 from jax import lax
 
 from ..config import TransformerConfig
-from ..ops.attention import attend
+from ..ops.attention import attend_xla
 from ..ops.quant import dense
 
 
@@ -41,9 +41,8 @@ class KVCache(NamedTuple):
         is the int8 bytes.
 
     Head-major (heads before time) makes the decode-step attention a clean
-    batched [g, d] x [d, T] GEMM with NO cache transposes; the time-major
-    layout cost ~1.4 ms/frame in relayout copies on v5e (measured: attention
-    at 224 keys was 73% of the talker step despite ~2 MFLOP of math).
+    batched [g, d] x [d, T] GEMM with no cache transposes; a time-major
+    layout would relayout the whole cache every step.
     """
 
     k: jax.Array
@@ -105,8 +104,7 @@ def splice_kv_cache(cache: KVCache, c1: KVCache, slot) -> KVCache:
 def quantize_kv(x: jax.Array) -> Tuple[jax.Array, jax.Array]:
     """[..., d] float -> (int8 [..., d], f32 scale [...]) per-vector symmetric.
 
-    Matches the fused kernels' in-register quantization exactly (f32 math,
-    round-half-away via jnp.round, amax/127 scale floored at 1e-8)."""
+    f32 math, jnp.round, amax/127 scale floored at 1e-8."""
     xf = x.astype(jnp.float32)
     amax = jnp.max(jnp.abs(xf), axis=-1)
     scale = jnp.maximum(amax / 127.0, 1e-8)
@@ -300,9 +298,8 @@ def _block(
             ks_cache = write_s(ks_cache, jnp.swapaxes(k_sc, 1, 2), cache_len)
             vs_cache = write_s(vs_cache, jnp.swapaxes(v_sc, 1, 2), cache_len)
 
-    out = attend(
-        q, k_cache, v_cache, attn_mask, impl=cfg.attn_impl,
-        k_scale=ks_cache, v_scale=vs_cache,
+    out = attend_xla(
+        q, k_cache, v_cache, attn_mask, k_scale=ks_cache, v_scale=vs_cache
     )  # [B,S,Nq,D]
     out = out.reshape(B, S, nq * d)
     x = x + dense(out, p["wo"]).astype(x.dtype)
@@ -417,9 +414,8 @@ def transformer_forward_nocache(
             k = rms_norm(k, layer_p["k_norm"], cfg.rms_norm_eps)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        out = attend(
-            q, jnp.swapaxes(k, 1, 2), jnp.swapaxes(v, 1, 2), attn_mask,
-            impl=cfg.attn_impl,
+        out = attend_xla(
+            q, jnp.swapaxes(k, 1, 2), jnp.swapaxes(v, 1, 2), attn_mask
         )
         out = out.reshape(B, S, nq * d)
         x = x + dense(out, layer_p["wo"]).astype(x.dtype)

@@ -8,7 +8,6 @@ the code predictor, matching the reference's last_hidden output contract.
 
 from __future__ import annotations
 
-import os
 from typing import Tuple
 
 import jax
@@ -34,21 +33,6 @@ def init_talker_params(cfg: TalkerConfig, key: jax.Array) -> dict:
 
 def talker_init_cache(cfg: TalkerConfig, batch: int, max_len: int) -> KVCache:
     return init_kv_cache(cfg.transformer, batch, max_len)
-
-
-def prepare_fused_talker(
-    cfg: TalkerConfig, talker_params: dict, bits: int = 8
-) -> dict:
-    """Attach pre-packed fused-step weights when the architecture qualifies."""
-    from ..ops.fused_step import pack_fused_weights, supports
-
-    if not supports(cfg.transformer):
-        return talker_params
-    out = dict(talker_params)
-    out["fused_step"] = pack_fused_weights(
-        cfg.transformer, talker_params["transformer"]["layers"], bits=bits
-    )
-    return out
 
 
 def talker_prefill(
@@ -119,142 +103,13 @@ def talker_decode_step(
     cache: KVCache,
     valid_mask: jax.Array,  # [B, T] bool
     uniform_fill: bool = True,
-    mesh=None,
 ) -> Tuple[jax.Array, jax.Array, KVCache, jax.Array]:
     """One decode step.  Returns (logits [B, V] f32, hidden [B, H], cache, valid_mask).
 
     ``uniform_fill=False`` (continuous serving pool) switches the cache write
-    to per-sequence offsets; the default keeps the cheap lockstep path.
-    ``mesh``: when given and a TP pack is attached (engine mesh path), the
-    B=1 step runs the shard_map'd per-layer fused kernels
-    (ops/fused_tp.py)."""
-    B, H = embed.shape
-    t = cfg.transformer
-    if (
-        cfg.decode_impl == "fused"
-        and "fused_tp" in params
-        and B == 1
-        and mesh is not None
-        and uniform_fill
-        and not cache.quantized
-    ):
-        import jax as _jax
-
-        from ..models.layers import rms_norm
-        from ..ops.fused_tp import fused_decode_step_tp
-
-        x_out, kc, vc = fused_decode_step_tp(
-            t, params["fused_tp"], embed, position[0], cache.k, cache.v,
-            mesh, interpret=_jax.default_backend() != "tpu",
-        )
-        hidden = rms_norm(
-            x_out, params["transformer"]["final_norm"], t.rms_norm_eps
-        ).astype(embed.dtype)
-        logits = dense(hidden, params["lm_head"])
-        new_valid = jax.lax.dynamic_update_slice(
-            valid_mask, jnp.ones((1, 1), bool), (0, position[0])
-        )
-        new_cache = KVCache(k=kc, v=vc, length=cache.length + 1)
-        return logits, hidden, new_cache, new_valid
-    # fused eligibility: small buckets always; big buckets via the windowed
-    # (online-softmax) kernel, which needs the bucket to be WINDOW-aligned
-    # (the engine rounds its ladder top accordingly)
-    fused_ok = cache.max_len <= cfg.fused_max_cache or cache.max_len % 512 == 0
-    kv_q = cache.quantized  # int8 KV: fused kernels take the scale arrays
-    if cfg.decode_impl == "fused" and "fused_step" in params and 2 <= B <= 32:
-        # batched fused step: per-stream positions, weights read ONCE for the
-        # whole serving batch (ops/fused_step.fused_decode_step_batched)
-        from ..ops.fused_step import batched_window, fused_decode_step_batched
-
-        bwin_ok = (
-            cache.max_len > 64
-            and cache.max_len % batched_window(B) == 0
-            and cache.max_len % 128 == 0
-        )
-        if (cache.max_len <= 64 or cache.max_len % batched_window(B) == 0) if not kv_q else bwin_ok:
-            import jax as _jax
-
-            from ..models.layers import rms_norm
-
-            interpret = _jax.default_backend() != "tpu"
-            if kv_q:
-                x_out, kc, vc, ksc, vsc = fused_decode_step_batched(
-                    t, params["fused_step"], embed, position, cache.k,
-                    cache.v, cache.k_scale, cache.v_scale,
-                    interpret=interpret,
-                )
-                new_cache = KVCache(k=kc, v=vc, length=cache.length + 1,
-                                    k_scale=ksc, v_scale=vsc)
-            else:
-                x_out, kc, vc = fused_decode_step_batched(
-                    t, params["fused_step"], embed, position, cache.k,
-                    cache.v, interpret=interpret,
-                )
-                new_cache = KVCache(k=kc, v=vc, length=cache.length + 1)
-            hidden = rms_norm(
-                x_out, params["transformer"]["final_norm"], t.rms_norm_eps
-            ).astype(embed.dtype)
-            logits = dense(hidden, params["lm_head"])
-            new_valid = valid_mask | (
-                jnp.arange(cache.max_len)[None, :] == position[:, None]
-            )
-            return logits, hidden, new_cache, new_valid
-    if (
-        cfg.decode_impl == "fused"
-        and "fused_step" in params
-        and B == 1
-        and fused_ok
-        and (not kv_q or cache.max_len % 128 == 0)
-    ):
-        # ONE Pallas kernel for all 28 layers (ops/fused_step.py); final norm,
-        # logit head, and bookkeeping stay outside the kernel
-        import jax as _jax
-
-        from ..models.layers import rms_norm
-        from ..ops.fused_step import fused_decode_step
-
-        interpret = _jax.default_backend() != "tpu"
-        pos = position[0]
-        if kv_q:
-            x_out, kc, vc, ksc, vsc = fused_decode_step(
-                t, params["fused_step"], embed, pos, cache.k, cache.v,
-                cache.k_scale, cache.v_scale, interpret=interpret,
-            )
-            new_cache = KVCache(k=kc, v=vc, length=cache.length + 1,
-                                k_scale=ksc, v_scale=vsc)
-        else:
-            x_out, kc, vc = fused_decode_step(
-                t, params["fused_step"], embed, pos, cache.k, cache.v,
-                interpret=interpret,
-            )
-            new_cache = KVCache(k=kc, v=vc, length=cache.length + 1)
-        hidden = rms_norm(
-            x_out, params["transformer"]["final_norm"], t.rms_norm_eps
-        ).astype(embed.dtype)
-        logits = dense(hidden, params["lm_head"])
-        new_valid = jax.lax.dynamic_update_slice(
-            valid_mask, jnp.ones((1, 1), bool), (0, pos)
-        )
-        return logits, hidden, new_cache, new_valid
-
-    if (
-        cfg.decode_impl == "fused"
-        and "fused_step" in params
-        and os.environ.get("QTTS_ASSERT_FUSED") == "1"
-    ):
-        # loud-failure mode for benches/deployments: a fused-packed model
-        # falling back to the XLA step is ~+25% per frame and historically
-        # SILENT (e.g. a kvq bucket not 128-aligned).  Trace-time raise —
-        # all gate inputs are static shapes/flags.
-        raise RuntimeError(
-            "QTTS_ASSERT_FUSED: fused decode step ineligible here "
-            f"(B={B}, max_len={cache.max_len}, kv_quant={kv_q}, "
-            f"uniform_fill={uniform_fill}, fused_ok={fused_ok}) — "
-            "check bucket alignment (kvq needs max_len % 128 == 0; "
-            "windowed needs % 512) and batch <= 32"
-        )
+    to per-sequence offsets; the default keeps the cheap lockstep path."""
     hidden, cache, valid_mask = transformer_forward(
-        t,
+        cfg.transformer,
         params["transformer"],
         embed[:, None, :],
         position[:, None],

@@ -1,3 +1,3 @@
-from .attention import attend, attend_xla
+from .attention import attend_xla
 
-__all__ = ["attend", "attend_xla"]
+__all__ = ["attend_xla"]

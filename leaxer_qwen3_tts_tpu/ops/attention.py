@@ -1,9 +1,9 @@
-"""Attention dispatch: XLA path (always available) and Pallas flash kernel.
+"""Grouped-query attention over the static KV cache, in plain XLA.
 
 K/V are HEAD-MAJOR ([B, Nk, T, D]) to match the KV-cache layout
 (models/layers.py KVCache): the decode-step scores/output contractions are
-then clean batched GEMMs over (B, Nk) with NO physical transposes of the
-cache — the time-major layout cost ~50 us/layer of relayout copies on v5e.
+then clean batched GEMMs over (B, Nk) with no physical transposes of the
+cache.
 
 int8 KV cache support: when per-slot scales are given (k/v stored int8), the
 dequant is applied in the SCORE domain — scores[..., t] *= k_scale[t] after
@@ -66,18 +66,3 @@ def attend_xla(
     out = jnp.transpose(out, (0, 3, 1, 2, 4)).reshape(B, S, nq, d)
     return out.astype(q.dtype)
 
-
-def attend(q, k, v, mask, impl: str = "xla", k_scale=None, v_scale=None) -> jax.Array:
-    if impl == "xla":
-        return attend_xla(q, k, v, mask, k_scale=k_scale, v_scale=v_scale)
-    if impl == "pallas":
-        from .flash_attention import flash_attend
-
-        if k_scale is not None:
-            # flash kernel has no scale plumbing: dequantize up front
-            # (correctness path; the perf path is the fused decode kernels)
-            k = (k.astype(jnp.float32) * k_scale[..., None]).astype(q.dtype)
-            v = (v.astype(jnp.float32) * v_scale[..., None]).astype(q.dtype)
-        interpret = jax.default_backend() != "tpu"
-        return flash_attend(q, k, v, mask, interpret=interpret)
-    raise ValueError(f"unknown attention impl {impl!r}")

@@ -1,9 +1,9 @@
 """Weight-only int8 quantization for the memory-bound decode path.
 
 Single-token decode reads every talker weight (431M params) plus the MTP
-stack 15x (92M each) per 12 Hz frame — pure HBM bandwidth.  Storing weights
-as int8 with per-output-channel scales halves the bytes; the dequant
-(convert + scale) fuses into the matmul's operand read on TPU.
+stack 15x (92M each) per 12 Hz frame — bound by device-memory bandwidth.
+Storing weights as int8 with per-output-channel scales halves the bytes,
+provided the dequant (convert + scale) fuses into the matmul's operand read.
 
 Applied as a RUNTIME transform after checkpoint load (checkpoints stay
 bf16/f32): `quantize_params(params)` rewrites matmul weights to
@@ -41,7 +41,7 @@ class QuantizedLinear4(NamedTuple):
            nibble) and k + in/2 (HIGH nibble), both two's-complement in
            [-8, 7].  The half-split packing means unpacking is two shift ops
            and the matmul splits into x[:, :K/2] @ lo + x[:, K/2:] @ hi — no
-           cross-sublane interleave on TPU.
+           interleave.
     scale: float32, [..., in/INT4_GROUP, out] — group g covers input rows
            [g*INT4_GROUP, (g+1)*INT4_GROUP).  int4's coarse grid needs
            group-wise scales (per-column-only int4 loses ~2 bits of dynamic
@@ -67,9 +67,6 @@ def quantize_weight(w: jax.Array) -> QuantizedLinear:
 def quantize_weight_int4(w: jax.Array, group: int = INT4_GROUP) -> QuantizedLinear4:
     """Symmetric int4 quantization with per-(K-group, out-column) scales.
 
-    The SAME grid is used by :func:`pack_fused_weights` (bits=4) because unit
-    slicing along K/N lands on group/column boundaries — the fused kernel and
-    this XLA path therefore dequantize identical values.
     """
     import math
 
@@ -104,7 +101,7 @@ def unpack_int4(q: jax.Array) -> jax.Array:
 
 def _dense4(x: jax.Array, w: QuantizedLinear4) -> jax.Array:
     """Group-scaled int4 matmul: per-group bf16 dots with f32 accumulation,
-    scales applied post-dot in f32 (same semantics as the fused kernel)."""
+    scales applied post-dot in f32."""
     assert w.q.ndim == 2, "int4 dense expects an unstacked [K/2, N] weight"
     K2, N = w.q.shape
     K = 2 * K2
@@ -126,12 +123,10 @@ def _dense4(x: jax.Array, w: QuantizedLinear4) -> jax.Array:
 def dense(x: jax.Array, w: WeightLike) -> jax.Array:
     """x [..., in] @ w -> [..., out] with float32 accumulation.
 
-    QuantizedLinear path: the int8 tensor converts to bf16 in-graph and XLA
-    fuses the convert into the dot's operand stream (HBM traffic = int8
-    bytes).  Measured on v5e this beats a per-dot Pallas kernel, which pays
-    grid overheads and blocks XLA's surrounding fusions at these tiny-M
-    shapes (retired dead end; docs/KERNEL_PLAN.md "measured negative
-    results").
+    QuantizedLinear path: the int8 tensor converts to bf16 in-graph; the
+    intent is that XLA fuses the convert into the dot's operand stream so
+    device-memory traffic is the int8 bytes (whether the GPU compiler does
+    so at every shape is an open question, PERF.md).
     """
     if isinstance(w, QuantizedLinear4):
         return _dense4(x, w)
@@ -198,8 +193,7 @@ def fuse_params(params, modules: Sequence[str] = ("talker", "code_predictor")):
 
 
 # in int4 mode these keys stay int8: lm_head/heads feed the sampler directly
-# (logit fidelity is the quality-critical surface) and their stacked layouts
-# (heads: [steps, H, V]) sit outside the fused kernels' K-group packing
+# (logit fidelity is the quality-critical surface)
 _INT8_ONLY_KEYS = frozenset({"lm_head", "heads", "head"})
 
 
@@ -234,8 +228,8 @@ def quantize_params(
                 )
                 for k, v in node.items()
             }
-        if hasattr(node, "_fields"):  # NamedTuple (QuantizedLinear,
-            return node  # FusedStepWeights, ...): already-packed, pass through
+        if hasattr(node, "_fields"):  # NamedTuple (QuantizedLinear, ...):
+            return node  # already quantized, pass through
         if isinstance(node, (list, tuple)):
             return type(node)(walk(v, quantizing) for v in node)
         return node

@@ -1,15 +1,15 @@
-"""Device mesh + sharding rules (the TPU replacement for multi-GPU runtimes).
+"""Device mesh + sharding rules (JAX SPMD in place of a multi-GPU runtime).
 
 The reference has no distributed anything (SURVEY §2.3: single process, single
 ``Ort::Env``, batch fixed at 1).  Here scale-out is native JAX SPMD:
 
   * mesh axes ``("data", "model")`` — data parallelism shards the request
-    batch (multi-stream serving on v5e-8); tensor parallelism shards
+    batch (multi-stream serving); tensor parallelism shards
     attention heads / MLP / vocab for the 1.7B-class variants.
   * collectives are XLA's (psum/all_gather inserted by GSPMD from the
-    shardings below) and ride ICI within a slice.
+    shardings below); on GPUs XLA hands them to NCCL.
   * pipeline/expert parallelism are explicit non-goals at this model scale
-    (0.6-1.7B, 28 layers — TP+DP saturate a v5e-8; SURVEY §2.3).
+    (0.6-1.7B, 28 layers; SURVEY §2.3).
 
 ``shard_params`` places a parameter pytree according to TP rules keyed on
 pytree paths; unlisted leaves replicate.  GSPMD then propagates activation

@@ -77,112 +77,10 @@ def init_state_from_prefill(
     )
 
 
-def resident_jit_options(cfg, batch: int = 1, params=None) -> "dict | None":
-    """compiler_options for decode-program jits that may embed a VMEM-
-    resident Pallas kernel (resident MTP chain / whole-frame kernel).
-    XLA charges the kernel's VMEM blocks against its scoped-vmem stack cap
-    (16 MiB default), which rejects the ~78 MB resident trunk; the Mosaic
-    vmem_limit_bytes param does not raise that cap (observed on v5e).
-
-    Returns None when the kernel cannot engage in this program — neither
-    path enabled, off-TPU, or (when ``params`` is given) the packed trunk
-    fails ``supports_resident`` at this batch.  The raised cap measurably
-    perturbs XLA's choices for programs that don't need it (B=32 int8
-    serving regressed ~15% when it was applied unconditionally), so gate
-    it as tightly as the available information allows."""
-    from ..models.code_predictor import (
-        _resident_enabled,
-        _stream_enabled,
-        resident_pack,
-    )
-    from ..ops.fused_mtp import resident_compiler_options
-    from ..ops.fused_mtp_stream import (
-        stream_compiler_options,
-        supports_stream,
-    )
-
-    cp = cfg.code_predictor
-    resident = cp.resident if cp.resident is not None else _resident_enabled()
-    frame = (
-        cfg.frame_fused if cfg.frame_fused is not None
-        else _frame_fused_enabled()
-    )
-    if not (resident or frame) or cp.head_mode != "per_step":
-        return None
-    if params is None:
-        # no pack to inspect: assume the resident chain can engage
-        return resident_compiler_options()
-    # considers the alt (lower-precision) pack too: B=32 engages the
-    # resident chain through fused_step_alt when the primary int8
-    # trunk fails the VMEM gate
-    if resident_pack(params.get("code_predictor", {}), batch) is not None:
-        return resident_compiler_options()
-    # trunk too large for residency (1.7B single-chip): the B=1 STREAMED
-    # chain still needs a raised cap — its ring slots + head double-buffer
-    # + KV scratch exceed the 16 MiB default (observed 25.22M on v5e) but
-    # need far less than the resident cap
-    if (
-        batch == 1
-        and resident
-        and _stream_enabled()
-        and supports_stream(
-            params.get("code_predictor", {}).get("fused_step"),
-            cp.num_steps, cp.subcode_vocab_size,
-        )
-    ):
-        return stream_compiler_options()
-    return None
-
-
-def _frame_fused_enabled() -> bool:
-    """Whole-frame fused kernel (ops/fused_frame.py) for B=1 sequential
-    decode.  Hardware-measured 2026-08-18 (manual_probe --frame): a WASH
-    vs the composed resident path on f32 KV (2.446 vs 2.450 ms/frame) and
-    +3% with int8 KV (1.940 vs 2.001), greedy agreement 1.0; rerun
-    2026-08-19 confirms (f32 2.448 vs 2.468, kvq 1.954 vs 1.972,
-    agreement 1.0) — the default stays OFF (sequential-only, different
-    sampled stream); opt in with QTTS_FRAME_FUSED / cfg.frame_fused for
-    the int8-KV single-stream last ~1-3%."""
-    import os
-
-    return os.environ.get("QTTS_FRAME_FUSED", "0") != "0"
-
-
-def _frame_fused_eligible(cfg, params, state, sp, uniform_fill, mesh) -> bool:
-    """Static (trace-time) gate for the whole-frame kernel: B=1 sequential
-    decode, fused talker in a vmem-mode bucket, resident-eligible MTP
-    trunk.  All conditions are shape/config properties — no traced data."""
-    if sp is None or mesh is not None or not uniform_fill:
-        return False
-    if state.last_hidden.shape[0] != 1:
-        return False
-    on = cfg.frame_fused if cfg.frame_fused is not None else _frame_fused_enabled()
-    if not on:
-        return False
-    tp = params.get("talker", {})
-    cp = params.get("code_predictor", {})
-    if cfg.talker.decode_impl != "fused" or "fused_step" not in tp:
-        return False
-    if "fused_step" not in cp or "fused_tp" in tp:
-        return False
-    if cfg.code_predictor.head_mode != "per_step":
-        # the in-kernel chain bakes the step-indexed heads; the shared-head
-        # fallback topology decodes on the multi-dispatch path
-        return False
-    from ..ops.fused_frame import supports_frame
-
-    return supports_frame(
-        cp["fused_step"], state.cache.max_len, cfg.talker.transformer,
-        state.cache.quantized,
-    )
-
-
 def _compute_drip(state: GenerateState, trailing, trailing_len,
                   tts_pad_embed) -> jax.Array:
     """This frame's text-drip embedding [B, H] (reference tts_onnx.cpp:
-    823-842).  One-hot contraction, NOT take_along_axis: dynamic gathers
-    lower to the TPU scalar core and cost ~0.5 ms inside the decode scan
-    (measured; runtime/speculative.py has the ablation numbers).  The
+    823-842).  A one-hot contraction rather than a per-row gather; the
     mask-sum is bit-exact (x * 1.0 + 0.0 == x)."""
     T = trailing.shape[1]
     drip_idx = jnp.minimum(state.step, T - 1)  # [B] per-stream drip cursor
@@ -198,100 +96,6 @@ def _compute_drip(state: GenerateState, trailing, trailing_len,
     )
 
 
-def _frame_step_fused(
-    cfg: TTSModelConfig,
-    params: dict,
-    suppress: jax.Array,
-    trailing: jax.Array,
-    trailing_len: jax.Array,
-    tts_pad_embed: jax.Array,
-    sp: SamplingParams,
-    state: GenerateState,
-) -> Tuple[GenerateState, Tuple[jax.Array, jax.Array]]:
-    """One frame through the whole-frame kernel (ops/fused_frame.py): the
-    code0 sample, resident MTP chain, next-input sum, talker step and
-    lm_head all run in ONE Pallas dispatch.  Greedy-identical to the
-    multi-dispatch path; sampled draws are a different per-seed-
-    deterministic stream (in-kernel Gumbel sampler — see fused_frame)."""
-    from ..ops.fused_frame import fused_frame_step
-
-    emb = params["embeddings"]
-    tp, cp = params["talker"], params["code_predictor"]
-    key, k_code0, k_pred = split_keys(state.key, 3)
-    kk0 = k_code0[0] if k_code0.ndim == 2 else k_code0
-    kkp = k_pred[0] if k_pred.ndim == 2 else k_pred
-    Vc = cfg.talker.codec_vocab_size
-    V = cfg.code_predictor.subcode_vocab_size
-    n = cfg.code_predictor.num_steps
-    g0 = jax.random.gumbel(kk0, (1, Vc), jnp.float32)
-    gkeys = jax.random.split(kkp, n)
-    gmtp = jax.vmap(lambda kk: jax.random.gumbel(kk, (1, V), jnp.float32))(
-        gkeys
-    )
-    drip = _compute_drip(state, trailing, trailing_len, tts_pad_embed)
-    cache = state.cache
-    kvq = cache.quantized
-    interpret = jax.default_backend() != "tpu"
-
-    outs = fused_frame_step(
-        cfg.talker.transformer,
-        cfg.code_predictor.transformer,
-        tp["fused_step"],
-        tp["transformer"]["final_norm"],
-        tp["lm_head"],
-        emb["codec_embed"],
-        cp["fused_step"],
-        cp["transformer"]["final_norm"],
-        cp["heads"],
-        emb["pred_embed"],
-        state.last_logits,
-        state.last_hidden,
-        suppress,
-        drip,
-        state.pos[0],
-        cache.k,
-        cache.v,
-        g0,
-        gmtp,
-        sp.temperature,
-        sp.top_k,
-        sp.top_p,
-        sp.forbid_eos,
-        k_scale=cache.k_scale if kvq else None,
-        v_scale=cache.v_scale if kvq else None,
-        interpret=interpret,
-        mtp_cache_dtype=cfg.code_predictor.transformer.jnp_dtype,
-    )
-    code0, subcodes, logits2, hidden2 = outs[:4]
-    if kvq:
-        kc, vc, ksc, vsc = outs[4:]
-        new_cache = KVCache(k=kc, v=vc, length=cache.length + 1,
-                            k_scale=ksc, v_scale=vsc)
-    else:
-        kc, vc = outs[4:]
-        new_cache = KVCache(k=kc, v=vc, length=cache.length + 1)
-
-    is_eos = code0 == CODEC_EOS
-    frame_valid = (~state.done) & (~is_eos)
-    done = state.done | is_eos
-    frame = jnp.concatenate([code0[:, None], subcodes], axis=1)  # [1, 16]
-    frame = jnp.where(frame_valid[:, None], frame, 0)
-    new_valid = lax.dynamic_update_slice(
-        state.valid_mask, jnp.ones((1, 1), bool), (0, state.pos[0])
-    )
-    new_state = GenerateState(
-        cache=new_cache,
-        valid_mask=new_valid,
-        last_logits=logits2,
-        last_hidden=hidden2.astype(state.last_hidden.dtype),
-        pos=state.pos + 1,
-        step=state.step + 1,
-        done=done,
-        key=key,
-    )
-    return new_state, (frame, frame_valid)
-
-
 def _frame_step(
     cfg: TTSModelConfig,
     params: dict,
@@ -302,14 +106,8 @@ def _frame_step(
     sp: SamplingParams,
     state: GenerateState,
     uniform_fill: bool = True,
-    mesh=None,
 ) -> Tuple[GenerateState, Tuple[jax.Array, jax.Array]]:
     """One 12 Hz frame.  Returns (state', (frame_codes [B,16], frame_valid [B]))."""
-    if _frame_fused_eligible(cfg, params, state, sp, uniform_fill, mesh):
-        return _frame_step_fused(
-            cfg, params, suppress, trailing, trailing_len, tts_pad_embed,
-            sp, state,
-        )
     emb = params["embeddings"]
     key, k_code0, k_pred = split_keys(state.key, 3)
 
@@ -321,7 +119,7 @@ def _frame_step(
     frame_valid = (~state.done) & (~is_eos)
     done = state.done | is_eos
 
-    # --- codebooks 1..15: fused MTP scan ---
+    # --- codebooks 1..15: MTP scan ---
     code0_embed = codec_embed(emb, code0)  # [B, H]
     sample_fn = lambda k, lg: sample_token(k, lg, sp)
     subcodes, sub_sum = predict_subcodes(
@@ -332,8 +130,6 @@ def _frame_step(
         code0_embed,
         k_pred,
         sample_fn,
-        sp=sp,
-        mesh=mesh,
     )
     frame = jnp.concatenate([code0[:, None], subcodes], axis=1)  # [B, 16]
     frame = jnp.where(frame_valid[:, None], frame, 0)
@@ -345,7 +141,7 @@ def _frame_step(
     # --- talker decode step ---
     logits2, hidden2, cache, valid_mask = talker_decode_step(
         cfg.talker, params["talker"], next_embed, state.pos, state.cache,
-        state.valid_mask, uniform_fill=uniform_fill, mesh=mesh,
+        state.valid_mask, uniform_fill=uniform_fill,
     )
 
     new_state = GenerateState(
@@ -371,7 +167,6 @@ def decode_frames(
     sp: SamplingParams,
     num_frames: int,
     uniform_fill: bool = True,
-    mesh=None,
 ) -> Tuple[GenerateState, jax.Array, jax.Array]:
     """Run ``num_frames`` frames (static) via lax.scan.
 
@@ -380,7 +175,7 @@ def decode_frames(
     suppress = make_codec_suppress_mask(cfg.talker.codec_vocab_size)
     step = functools.partial(
         _frame_step, cfg, params, suppress, trailing, trailing_len,
-        tts_pad_embed, sp, uniform_fill=uniform_fill, mesh=mesh,
+        tts_pad_embed, sp, uniform_fill=uniform_fill,
     )
     state, (frames, valid) = lax.scan(lambda s, _: step(s), state, None, length=num_frames)
     frames = jnp.moveaxis(frames, 0, 1)  # [B, F, 16]
@@ -405,16 +200,12 @@ def make_generate_fns(
     has_instruct: bool = False,
     donate: bool = True,
     uniform_fill: bool = True,
-    mesh=None,
-    params=None,
 ) -> GenerateFns:
     """Build jitted prefill / decode-chunk functions.
 
     ``max_len`` is the KV-cache bucket (prompt + frames); ``chunk_len`` the frames
     per host dispatch.  The decode chunk donates the state so the KV cache is
-    updated in place in HBM.  ``params`` (optional) is only consulted to
-    decide whether the resident-kernel compiler options apply — pass it
-    when available so B>budget programs keep default XLA behavior.
+    updated in place in device memory.
     """
 
     def prefill_impl(params, text_ids, text_len, key, speaker_embed=None,
@@ -435,14 +226,9 @@ def make_generate_fns(
     def decode_impl(params, state, trailing, trailing_len, tts_pad_embed, sp):
         return decode_frames(
             cfg, params, state, trailing, trailing_len, tts_pad_embed, sp,
-            chunk_len, uniform_fill=uniform_fill, mesh=mesh,
+            chunk_len, uniform_fill=uniform_fill,
         )
 
     prefill = jax.jit(prefill_impl)
-    decode = jax.jit(
-        decode_impl,
-        donate_argnums=(1,) if donate else (),
-        compiler_options=resident_jit_options(cfg, batch=batch,
-                                              params=params),
-    )
+    decode = jax.jit(decode_impl, donate_argnums=(1,) if donate else ())
     return GenerateFns(prefill=prefill, decode=decode)

@@ -110,7 +110,7 @@ K_CAP = 128  # static top-k subset width for the fast sampling path
 
 def _sample_full(key, logits, params):
     """Exact full-vocab path (sort-based): used when top_k is disabled or
-    exceeds K_CAP.  O(V log V) sorts — slow on TPU, rare in practice."""
+    exceeds K_CAP.  O(V log V) sorts — slower, rare in practice."""
     t = _per_row(jnp.maximum(params.temperature, 1e-6))
     scaled = logits / t
     scaled = jnp.where(_top_k_mask(scaled, _per_row(params.top_k)), scaled, NEG_INF)

@@ -130,7 +130,15 @@ def load_checkpoint(model_dir: str) -> Tuple[TTSModelConfig, dict]:
     else:
         raise FileNotFoundError(f"no {WEIGHTS_NPZ} or {WEIGHTS_SAFETENSORS} in {model_dir}")
     params = unflatten_params(flat)
-    return cfg, jax.tree.map(jnp.asarray, params)
+    return cfg, jax.tree.map(_from_saved, params)
+
+
+def _from_saved(a: np.ndarray) -> jax.Array:
+    # np.save writes bfloat16 (an ml_dtypes type numpy does not know) as raw
+    # 2-byte void: restore the type from the bits
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        a = a.view(jnp.bfloat16)
+    return jnp.asarray(a)
 
 
 def model_dir_is_checkpoint(model_dir: str) -> bool:

@@ -24,9 +24,6 @@ def main(argv=None) -> int:
     p.add_argument("--quantize", choices=["int8", "int4"])
     p.add_argument("--kv-quant", action="store_true",
                    help="int8 KV cache (halves cache bandwidth at B>=8)")
-    p.add_argument("--mtp-resident", choices=["on", "off"],
-                   help="pin the resident-trunk MTP chain kernel "
-                        "(default: on for TPU; QTTS_MTP_RESIDENT env overrides)")
     p.add_argument("--spec-accept-floor", type=float, default=0.3,
                    help="adaptive spec: revert to sequential decode when "
                         "trailing acceptance stays below this (0 disables)")
@@ -42,15 +39,15 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     from ..api.engine import TTSEngine
+    from ..utils.compile_cache import enable_compile_cache
     from .pool import ContinuousBatcher
     from .server import BatchingServer, make_http_server
 
+    enable_compile_cache()
     engine = TTSEngine(
         args.model, max_frames=args.max_tokens, quantize=args.quantize,
         spec_k=args.spec_k, kv_quant=args.kv_quant,
         spec_accept_floor=args.spec_accept_floor,
-        mtp_resident=(None if args.mtp_resident is None
-                      else args.mtp_resident == "on"),
     )
     if not engine.is_ready():
         print(f"Error: {engine.get_error()}", file=sys.stderr)

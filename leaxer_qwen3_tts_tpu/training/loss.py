@@ -1,7 +1,7 @@
 """Teacher-forced training loss for the Qwen3-TTS acoustic LM.
 
 The reference is inference-only (no training loop anywhere, SURVEY §5); this
-module adds fine-tuning capability the TPU-first way: one jittable loss over
+module adds fine-tuning capability: one jittable loss over
 the same model code the decode loop uses.
 
 Given text + ground-truth codec frames, reproduces the generation-time input

@@ -3,7 +3,7 @@
 Layout (see parallel/mesh.py): params tensor-parallel over "model", batch
 data-parallel over "data"; GSPMD inserts the gradient psum over "data" and the
 TP collectives over "model" from the shardings alone — no hand-written
-collectives (the TPU-native replacement for NCCL allreduce training loops).
+collectives (XLA lowers them to NCCL on GPUs).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-// Byte-level BPE tokenizer (Qwen2/GPT-2 family) — TPU-framework native frontend.
+// Byte-level BPE tokenizer (Qwen2/GPT-2 family) — native frontend.
 //
 // Same capability surface as the reference's io/tokenizer.{h,cpp} (vocab.json +
 // merges.txt -> token ids) but a different engine: token strings are interned to

@@ -1,4 +1,4 @@
-// WAV read/write + linear resampler — native host I/O for the TPU framework.
+// WAV read/write + linear resampler — native host I/O.
 //
 // Capability parity with the reference's io/wav_reader.{h,cpp} and
 // wav_writer.cpp / main_onnx.cpp:15-58: chunked RIFF parsing, PCM 8/16/24/32

@@ -301,6 +301,26 @@ def test_safetensors_checkpoint_roundtrip(tiny_model, tmp_path):
     np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
+@pytest.mark.parametrize("fmt", ["npz", "safetensors"])
+def test_bf16_checkpoint_roundtrip(tiny_model, tmp_path, fmt):
+    """A bfloat16 model saves and loads with its dtype and bits intact (npz
+    stores bfloat16 as raw 2-byte void)."""
+    import jax
+    import jax.numpy as jnp
+
+    from leaxer_qwen3_tts_tpu.runtime.weights import load_checkpoint, save_checkpoint
+
+    cfg, params = tiny_model
+    bf = jax.tree.map(lambda x: x.astype(jnp.bfloat16) if x.dtype == jnp.float32 else x, params)
+    d = str(tmp_path / f"bf16_{fmt}")
+    save_checkpoint(d, cfg, bf, fmt=fmt)
+    _, back = load_checkpoint(d)
+    assert jax.tree.structure(back) == jax.tree.structure(bf)
+    for a, b in zip(jax.tree.leaves(bf), jax.tree.leaves(back)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(np.asarray(a, np.float32), np.asarray(b, np.float32))
+
+
 def test_batch_per_request_metrics(engine):
     """Each batched result carries its own frame/audio counts (round-1
     verdict: metrics.frames was the max over streams for every element)."""
@@ -354,44 +374,6 @@ def test_prompt_too_long_raises(tiny_model, tiny_vocab_files):
         eng.synthesize(
             "hello", temperature=0.0, instruct=" ".join(["hello"] * 40)
         )
-
-
-def test_fused_prep_bits_follow_quantize(tiny_model, monkeypatch):
-    """quantize=None packs bf16 units (bits=16) so the unquantized config
-    gets the same kernel treatment — no quantization anywhere, the pack is a
-    bf16 relayout (round-3 verdict #6).  quantize=int8 packs bits=8."""
-    import dataclasses
-
-    import jax
-
-    import leaxer_qwen3_tts_tpu.models.code_predictor as cp_mod
-    import leaxer_qwen3_tts_tpu.models.talker as talker_mod
-
-    cfg, params = tiny_model
-    cfg2 = dataclasses.replace(
-        cfg,
-        talker=dataclasses.replace(cfg.talker, decode_impl="fused"),
-        code_predictor=dataclasses.replace(cfg.code_predictor, impl="fused"),
-    )
-    calls = []
-    monkeypatch.setattr(
-        talker_mod, "prepare_fused_talker",
-        lambda c, p, bits=8: (calls.append(("t", bits)), p)[1],
-    )
-    monkeypatch.setattr(
-        cp_mod, "prepare_fused_step",
-        lambda c, p, bits=8: (calls.append(("m", bits)), p)[1],
-    )
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-
-    eng = TTSEngine(config=cfg2, params=params)  # quantize=None -> bf16 pack
-    assert eng.is_ready(), eng.get_error()
-    assert sorted(calls) == [("m", 16), ("t", 16)], calls
-
-    calls.clear()
-    eng = TTSEngine(config=cfg2, params=params, quantize="int8")
-    assert eng.is_ready(), eng.get_error()
-    assert sorted(calls) == [("m", 8), ("t", 8)], calls
 
 
 def test_cli_stream_writes_incremental_wav(tiny_model, tiny_vocab_files, tmp_path):
@@ -449,88 +431,3 @@ def test_engine_warmup(tiny_model, tiny_vocab_files):
     assert r.metrics.frames > 0
     assert len(eng._fns_cache) == n_fns, "synthesize compiled NEW decode fns"
     assert len(eng._vocode_cache) == n_voc, "synthesize compiled NEW vocoders"
-
-
-def test_mtp_quantize_mixed_trunk(tiny_model, monkeypatch):
-    """mtp_quantize overrides the MTP trunk's pack precision: the pack runs
-    from RAW weights before quantize_params, so an int4 trunk composes with
-    an int8 engine (the 1.7B B=32 serving lever)."""
-    import dataclasses
-
-    import jax
-
-    import leaxer_qwen3_tts_tpu.models.code_predictor as cp_mod
-    import leaxer_qwen3_tts_tpu.models.talker as talker_mod
-
-    cfg, params = tiny_model
-    cfg2 = dataclasses.replace(
-        cfg,
-        talker=dataclasses.replace(cfg.talker, decode_impl="fused"),
-        code_predictor=dataclasses.replace(cfg.code_predictor, impl="fused"),
-    )
-    calls = []
-
-    def fake_prep(c, p, bits=8):
-        calls.append(("m", bits))
-        return dict(p, fused_step=object())
-
-    monkeypatch.setattr(cp_mod, "prepare_fused_step", fake_prep)
-    monkeypatch.setattr(
-        talker_mod, "prepare_fused_talker",
-        lambda c, p, bits=8: (calls.append(("t", bits)), p)[1],
-    )
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-
-    eng = TTSEngine(config=cfg2, params=params, quantize="int8",
-                    mtp_quantize="int4")
-    assert eng.is_ready(), eng.get_error()
-    assert ("m", 4) in calls and ("t", 8) in calls, calls
-    assert ("m", 8) not in calls, calls  # no double pack
-
-    eng = TTSEngine(config=cfg2, params=params, mtp_quantize="fp8")
-    assert not eng.is_ready() and "mtp_quantize" in eng.get_error()
-
-
-def test_kvq_ladder_top_is_128_aligned(tiny_model, tiny_vocab_files):
-    """int8-KV fused kernels gate on max_len % 128 == 0 (talker.py); an
-    unaligned top bucket silently falls back to the XLA step (~+25%/frame
-    measured on v5e).  A kv-quant engine must 128-align its ladder top."""
-    from leaxer_qwen3_tts_tpu.frontend import Tokenizer
-
-    cfg, params = tiny_model
-    vocab_path, merges_path, _ = tiny_vocab_files
-    tok = Tokenizer(vocab_path, merges_path)
-    eng = TTSEngine(config=cfg, params=params, tokenizer=tok,
-                    max_frames=384, chunk_len=4, kv_quant=True)
-    assert eng.kv_ladder[-1] % 128 == 0, eng.kv_ladder
-    # non-quantized keeps the tight bucket (no alignment constraint)
-    eng2 = TTSEngine(config=cfg, params=params, tokenizer=tok,
-                     max_frames=384, chunk_len=4)
-    assert eng2.kv_ladder[-1] == 384 + 32
-
-
-def test_assert_fused_env_raises_on_fallback(tiny_model, monkeypatch):
-    """QTTS_ASSERT_FUSED=1 turns the silent fused->XLA decode fallback into
-    a trace-time error naming the failed gate inputs."""
-    import dataclasses
-
-    import jax
-    import jax.numpy as jnp
-    import pytest
-
-    from leaxer_qwen3_tts_tpu.models.layers import init_kv_cache
-    from leaxer_qwen3_tts_tpu.models.talker import talker_decode_step
-
-    cfg, params = tiny_model
-    tt = dataclasses.replace(cfg.talker.transformer, kv_cache_quant=True)
-    t = dataclasses.replace(cfg.talker, decode_impl="fused", transformer=tt)
-    tp = dict(params["talker"])
-    tp["fused_step"] = object()  # presence is what the gate checks first
-    # unaligned kvq bucket: 72 % 128 != 0 -> ineligible
-    cache = init_kv_cache(tt, batch=1, max_len=72)
-    embed = jnp.zeros((1, t.transformer.hidden_size), jnp.float32)
-    pos = jnp.zeros((1,), jnp.int32)
-    vm = jnp.zeros((1, 72), bool)
-    monkeypatch.setenv("QTTS_ASSERT_FUSED", "1")
-    with pytest.raises(RuntimeError, match="QTTS_ASSERT_FUSED"):
-        talker_decode_step(t, tp, embed, pos, cache, vm)

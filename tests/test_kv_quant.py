@@ -205,205 +205,3 @@ def test_pool_kv_quant(tiny_model, tiny_vocab_files):
         assert len(r.codes) > 0 and np.isfinite(r.audio).all()
     finally:
         pool.shutdown()
-
-
-# ---------------------------------------------------------------------------
-# Fused kernel (B=1) int8-KV parity — interpret mode
-# ---------------------------------------------------------------------------
-
-
-def _fused_tr():
-    from leaxer_qwen3_tts_tpu.config import TransformerConfig
-
-    return TransformerConfig(
-        hidden_size=1024, num_layers=2, num_heads=8, num_kv_heads=4,
-        head_dim=128, intermediate_size=3072, dtype="float32",
-        kv_cache_quant=True,
-    )
-
-
-def _quantize_ref_cache(t, kc_f, vc_f):
-    """bf16/f32 reference cache content -> the int8 cache + scales the
-    quantized paths would hold after writing the same values."""
-    q_k, s_k = quantize_kv(kc_f)  # [..., T, d] -> scales [..., T]
-    q_v, s_v = quantize_kv(vc_f)
-    return q_k, q_v, s_k, s_v
-
-
-@pytest.mark.parametrize("mode,T", [("vmem", 256), ("hbm", 1024), ("win", 1024)])
-def test_fused_kvq_matches_xla(mode, T):
-    """Quantized fused decode step (each mode) == the XLA transformer_forward
-    with the SAME int8 cache + scales and the same int8 weights."""
-    import dataclasses
-
-    from leaxer_qwen3_tts_tpu.models.layers import (
-        init_transformer_params,
-        rms_norm,
-        transformer_forward,
-    )
-    from leaxer_qwen3_tts_tpu.ops.fused_step import (
-        fused_decode_step,
-        pack_fused_weights,
-    )
-    from leaxer_qwen3_tts_tpu.ops.quant import quantize_params
-
-    t = _fused_tr()
-    params = init_transformer_params(t, jax.random.PRNGKey(0))
-    fw = pack_fused_weights(t, params["layers"])
-    # XLA path with the same int8 WEIGHTS (so only cache math differs)
-    qlayers = quantize_params({"m": {"transformer": {"layers": params["layers"]}}},
-                              modules=("m",))["m"]["transformer"]["layers"]
-    qparams = {"layers": qlayers, "final_norm": params["final_norm"]}
-
-    rng = np.random.default_rng(7)
-    L, nk, d = t.num_layers, t.num_kv_heads, t.head_dim
-    pos_i = 137  # not 8/32/128-aligned: exercises every RMW window path
-    x = jnp.asarray(rng.standard_normal((1, 1024)) * 0.3, jnp.float32)
-
-    kc_f = jnp.asarray(rng.standard_normal((L, 1, nk, T, d)) * 0.2, jnp.float32)
-    vc_f = jnp.asarray(rng.standard_normal((L, 1, nk, T, d)) * 0.2, jnp.float32)
-    # zero unwritten slots like a real cache (they are masked anyway)
-    written = (np.arange(T) < pos_i)[None, None, None, :, None]
-    kc_f = kc_f * written
-    vc_f = vc_f * written
-    q_k, q_v, s_k, s_v = _quantize_ref_cache(t, kc_f, vc_f)
-
-    pos = jnp.asarray(pos_i, jnp.int32)
-    x_f, kq_out, vq_out, ks_out, vs_out = fused_decode_step(
-        t, fw, x, pos, q_k, q_v, s_k, s_v, interpret=True, mode=mode,
-    )
-
-    cache = KVCache(k=q_k, v=q_v, length=jnp.full((1,), pos_i, jnp.int32),
-                    k_scale=s_k, v_scale=s_v)
-    valid = jnp.asarray((np.arange(T) < pos_i)[None, :])
-    h_x, cache_x, _ = transformer_forward(
-        t, qparams, x[:, None, :], jnp.asarray([[pos_i]], jnp.int32),
-        cache, valid,
-    )
-    h_ref = np.asarray(h_x)[:, 0]
-    h_fused = np.asarray(
-        rms_norm(x_f, params["final_norm"], t.rms_norm_eps)
-    )
-    corr = np.corrcoef(h_fused.ravel(), h_ref.ravel())[0, 1]
-    assert corr > 0.999, (mode, corr)
-    np.testing.assert_allclose(h_fused, h_ref, atol=0.05, rtol=0.05)
-
-    # the written int8 slot + scales match the XLA write up to the kernel's
-    # bf16-matmul vs XLA f32-matmul difference in the pre-quantization k
-    # (rounds can flip by 1 on the int8 grid; scales track amax similarly)
-    dk = np.abs(
-        np.asarray(kq_out[:, 0, :, pos_i], np.int32)
-        - np.asarray(cache_x.k[:, 0, :, pos_i], np.int32)
-    )
-    assert dk.max() <= 2, dk.max()
-    np.testing.assert_allclose(
-        np.asarray(ks_out[:, 0, :, pos_i]),
-        np.asarray(cache_x.k_scale[:, 0, :, pos_i]), rtol=0.05,
-    )
-    # neighbors untouched
-    np.testing.assert_array_equal(
-        np.asarray(kq_out[:, 0, :, pos_i + 1]), np.asarray(q_k[:, 0, :, pos_i + 1])
-    )
-
-
-def test_fused_talker_step_kvq_matches_xla():
-    """talker_decode_step(fused) with an int8 KV cache == the XLA path."""
-    import dataclasses
-
-    from leaxer_qwen3_tts_tpu.config import TalkerConfig
-    from leaxer_qwen3_tts_tpu.models.talker import (
-        init_talker_params,
-        prepare_fused_talker,
-        talker_decode_step,
-        talker_init_cache,
-    )
-    from leaxer_qwen3_tts_tpu.ops.quant import fuse_params, quantize_params
-
-    t = _fused_tr()
-    cfg_xla = TalkerConfig(transformer=t, codec_vocab_size=256,
-                           text_vocab_size=152000, decode_impl="xla")
-    cfg_fused = dataclasses.replace(cfg_xla, decode_impl="fused")
-    params = init_talker_params(cfg_xla, jax.random.PRNGKey(0))
-    qparams = quantize_params(fuse_params({"talker": params}))["talker"]
-    fparams = prepare_fused_talker(cfg_fused, qparams)
-
-    rng = np.random.default_rng(0)
-    embed = jnp.asarray(rng.standard_normal((1, 1024)) * 0.3, jnp.float32)
-    pos = jnp.asarray([3], jnp.int32)
-    cache = talker_init_cache(cfg_xla, 1, 256)
-    assert cache.quantized
-    kf = jnp.asarray(rng.standard_normal(cache.k.shape) * 0.2, jnp.float32)
-    vf = jnp.asarray(rng.standard_normal(cache.v.shape) * 0.2, jnp.float32)
-    mask3 = (np.arange(256) < 3)[None, None, None, :, None]
-    qk, sk = quantize_kv(kf * mask3)
-    qv, sv = quantize_kv(vf * mask3)
-    cache = cache._replace(k=qk, v=qv, k_scale=sk, v_scale=sv,
-                           length=jnp.full((1,), 3, jnp.int32))
-    valid = jnp.asarray(np.arange(256)[None, :] < 3)
-
-    lg_x, h_x, c_x, v_x = talker_decode_step(cfg_xla, qparams, embed, pos, cache, valid)
-    lg_f, h_f, c_f, v_f = talker_decode_step(cfg_fused, fparams, embed, pos, cache, valid)
-    assert c_f.k.dtype == jnp.int8 and c_f.k_scale is not None
-    np.testing.assert_array_equal(np.asarray(v_x), np.asarray(v_f))
-    np.testing.assert_allclose(np.asarray(h_f), np.asarray(h_x), atol=0.03, rtol=0.03)
-    corr = np.corrcoef(np.asarray(lg_x).ravel(), np.asarray(lg_f).ravel())[0, 1]
-    assert corr > 0.999, corr
-    dk = np.abs(
-        np.asarray(c_f.k[:, :, :, 3], np.int32)
-        - np.asarray(c_x.k[:, :, :, 3], np.int32)
-    )
-    assert dk.max() <= 2, dk.max()
-
-
-def test_batched_fused_kvq_matches_single_rows():
-    """bwin kvq kernel: each batch row == the single-stream win kernel run on
-    that row's cache at its own position."""
-    from leaxer_qwen3_tts_tpu.models.layers import init_transformer_params
-    from leaxer_qwen3_tts_tpu.ops.fused_step import (
-        batched_window,
-        fused_decode_step,
-        fused_decode_step_batched,
-        pack_fused_weights,
-    )
-
-    t = _fused_tr()
-    params = init_transformer_params(t, jax.random.PRNGKey(1))
-    fw = pack_fused_weights(t, params["layers"])
-    rng = np.random.default_rng(11)
-    L, nk, d, B = t.num_layers, t.num_kv_heads, t.head_dim, 4
-    T = 512
-    assert T % batched_window(B) == 0 and T % 128 == 0
-    pos_list = [137, 3, 260, 511]  # unaligned, tiny, cross-window, last slot
-
-    x = jnp.asarray(rng.standard_normal((B, 1024)) * 0.3, jnp.float32)
-    kc_f = rng.standard_normal((L, B, nk, T, d)).astype(np.float32) * 0.2
-    vc_f = rng.standard_normal((L, B, nk, T, d)).astype(np.float32) * 0.2
-    for b, p in enumerate(pos_list):  # zero unwritten slots
-        kc_f[:, b, :, p:] = 0.0
-        vc_f[:, b, :, p:] = 0.0
-    qk, sk = quantize_kv(jnp.asarray(kc_f))
-    qv, sv = quantize_kv(jnp.asarray(vc_f))
-    pos = jnp.asarray(pos_list, jnp.int32)
-
-    xb, kb, vb, ksb, vsb = fused_decode_step_batched(
-        t, fw, x, pos, qk, qv, sk, sv, interpret=True,
-    )
-    for b, p in enumerate(pos_list):
-        x1, k1, v1, ks1, vs1 = fused_decode_step(
-            t, fw, x[b : b + 1], jnp.asarray(p, jnp.int32),
-            qk[:, b : b + 1], qv[:, b : b + 1],
-            sk[:, b : b + 1], sv[:, b : b + 1],
-            interpret=True, mode="win",
-        )
-        np.testing.assert_allclose(
-            np.asarray(xb[b]), np.asarray(x1[0]), atol=2e-2, rtol=2e-2,
-        )
-        dk = np.abs(
-            np.asarray(kb[:, b, :, p], np.int32)
-            - np.asarray(k1[:, 0, :, p], np.int32)
-        )
-        assert dk.max() <= 1, dk.max()  # bf16 noise across the two shapes
-        np.testing.assert_allclose(
-            np.asarray(ksb[:, b, :, p]), np.asarray(ks1[:, 0, :, p]),
-            rtol=1e-3,  # bf16 matmul reduction noise across the two shapes
-        )

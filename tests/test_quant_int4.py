@@ -1,7 +1,5 @@
-"""int4 (group-128, nibble-packed) weight quantization: packing layout,
-XLA dense path, fused-kernel parity, and grid consistency between the two."""
-
-import dataclasses
+"""int4 (group-128, nibble-packed) weight quantization: packing layout and
+the XLA dense path."""
 
 import jax
 import jax.numpy as jnp
@@ -18,14 +16,13 @@ from leaxer_qwen3_tts_tpu.ops.quant import (
 )
 
 
-def _talker_cfgs():
+def _talker_cfg():
     t = TransformerConfig(
         hidden_size=1024, num_layers=1, num_heads=8, num_kv_heads=4,
         head_dim=128, intermediate_size=3072, dtype="float32",
     )
-    cfg_xla = TalkerConfig(transformer=t, codec_vocab_size=256,
-                           text_vocab_size=152000, decode_impl="xla")
-    return cfg_xla, dataclasses.replace(cfg_xla, decode_impl="fused")
+    return TalkerConfig(transformer=t, codec_vocab_size=256,
+                        text_vocab_size=152000)
 
 
 def test_int4_pack_unpack_roundtrip():
@@ -83,8 +80,7 @@ def test_quantize_params_int4_layout():
         quantize_params,
     )
 
-    cfg_xla, _ = _talker_cfgs()
-    params = init_talker_params(cfg_xla, jax.random.PRNGKey(0))
+    params = init_talker_params(_talker_cfg(), jax.random.PRNGKey(0))
     q = quantize_params(fuse_params({"talker": params}), bits=4)["talker"]
     layers = q["transformer"]["layers"]
     assert isinstance(layers["wqkv"], QuantizedLinear4)
@@ -92,149 +88,8 @@ def test_quantize_params_int4_layout():
     assert isinstance(q["lm_head"], QuantizedLinear)  # int8, not int4
 
 
-def test_pack_fused_int4_matches_whole_tensor_grid():
-    """Per-unit int4 quantization in pack_fused_weights lands on the same
-    grid as whole-tensor quantize_weight_int4 (the XLA fallback)."""
-    from leaxer_qwen3_tts_tpu.models.layers import init_transformer_params
-    from leaxer_qwen3_tts_tpu.ops.fused_step import N_UNIT, pack_fused_weights
-
-    t = TransformerConfig(
-        hidden_size=1024, num_layers=1, num_heads=8, num_kv_heads=4,
-        head_dim=128, intermediate_size=3072, dtype="float32",
-    )
-    params = init_transformer_params(t, jax.random.PRNGKey(3))
-    fw = pack_fused_weights(t, params["layers"], bits=4)
-    H = 1024
-    assert fw.units.shape[2] == H // 2
-    assert fw.scales.shape[2] == H // INT4_GROUP
-
-    # qkv unit 0 == columns [0, N_UNIT) of the whole-tensor wqkv quantization
-    wqkv = jnp.concatenate(
-        [params["layers"]["wq"], params["layers"]["wk"], params["layers"]["wv"]],
-        axis=-1,
-    )
-    q_whole = quantize_weight_int4(wqkv)
-    np.testing.assert_array_equal(
-        np.asarray(fw.units[0, 0]), np.asarray(q_whole.q[0, :, :N_UNIT])
-    )
-    np.testing.assert_allclose(
-        np.asarray(fw.scales[0, 0]), np.asarray(q_whole.scale[0, :, :N_UNIT])
-    )
-
-
-def test_fused_talker_step_int4_matches_xla():
-    """decode_impl='fused' with bits=4 units == the XLA QuantizedLinear4 path
-    (interpret mode), same quantization grid on both sides."""
-    from leaxer_qwen3_tts_tpu.models.talker import (
-        init_talker_params,
-        prepare_fused_talker,
-        talker_decode_step,
-        talker_init_cache,
-    )
-    from leaxer_qwen3_tts_tpu.ops.quant import fuse_params, quantize_params
-
-    cfg_xla, cfg_fused = _talker_cfgs()
-    params = init_talker_params(cfg_xla, jax.random.PRNGKey(0))
-    fused_in = fuse_params({"talker": params})["talker"]
-    # int4 order: pack from RAW weights, then quantize the XLA fallback copy
-    fparams = prepare_fused_talker(cfg_fused, fused_in, bits=4)
-    qparams = quantize_params({"talker": fused_in}, bits=4)["talker"]
-    fparams = {**qparams, "fused_step": fparams["fused_step"]}
-
-    rng = np.random.default_rng(0)
-    embed = jnp.asarray(rng.standard_normal((1, 1024)) * 0.3, jnp.float32)
-    pos = jnp.asarray([3], jnp.int32)
-    cache = talker_init_cache(cfg_xla, 1, 16)
-    cache = cache._replace(
-        k=jnp.asarray(rng.standard_normal(cache.k.shape) * 0.2, jnp.float32),
-        v=jnp.asarray(rng.standard_normal(cache.v.shape) * 0.2, jnp.float32),
-        length=jnp.full((1,), 3, jnp.int32),
-    )
-    valid = jnp.asarray(np.arange(16)[None, :] < 3)
-
-    lg_x, h_x, c_x, v_x = talker_decode_step(cfg_xla, qparams, embed, pos, cache, valid)
-    lg_f, h_f, c_f, v_f = talker_decode_step(cfg_fused, fparams, embed, pos, cache, valid)
-
-    np.testing.assert_array_equal(np.asarray(v_x), np.asarray(v_f))
-    np.testing.assert_allclose(np.asarray(h_f), np.asarray(h_x), atol=0.03, rtol=0.03)
-    corr = np.corrcoef(np.asarray(lg_x).ravel(), np.asarray(lg_f).ravel())[0, 1]
-    assert corr > 0.999, corr
-    np.testing.assert_allclose(np.asarray(c_f.k), np.asarray(c_x.k), atol=0.02)
-
-
-def test_fused_step_int4_all_modes_agree():
-    """int4 units produce the same step output across vmem / hbm / win modes."""
-    from leaxer_qwen3_tts_tpu.models.layers import init_transformer_params
-    from leaxer_qwen3_tts_tpu.ops.fused_step import (
-        fused_decode_step,
-        pack_fused_weights,
-    )
-
-    t = TransformerConfig(
-        hidden_size=1024, num_layers=2, num_heads=8, num_kv_heads=4,
-        head_dim=128, intermediate_size=3072, dtype="float32",
-    )
-    params = init_transformer_params(t, jax.random.PRNGKey(0))
-    fw = pack_fused_weights(t, params["layers"], bits=4)
-
-    rng = np.random.default_rng(7)
-    L, nk, d, T = 2, 4, 128, 512
-    x = jnp.asarray(rng.standard_normal((1, 1024)) * 0.3, jnp.float32)
-    kc = jnp.asarray(rng.standard_normal((L, 1, nk, T, d)) * 0.2, jnp.float32)
-    vc = jnp.asarray(rng.standard_normal((L, 1, nk, T, d)) * 0.2, jnp.float32)
-    pos = jnp.asarray(200, jnp.int32)
-
-    outs = {}
-    for mode in ("vmem", "hbm", "win"):
-        x_o, k_o, _ = fused_decode_step(
-            t, fw, x, pos, kc, vc, interpret=True, mode=mode
-        )
-        outs[mode] = (np.asarray(x_o), np.asarray(k_o))
-    for mode in ("hbm", "win"):
-        np.testing.assert_allclose(
-            outs[mode][0], outs["vmem"][0], atol=2e-2, err_msg=mode
-        )
-        corr = np.corrcoef(outs[mode][0].ravel(), outs["vmem"][0].ravel())[0, 1]
-        assert corr > 0.99999, (mode, corr)
-
-
-def test_batched_fused_int4_matches_single_rows():
-    from leaxer_qwen3_tts_tpu.models.layers import init_transformer_params
-    from leaxer_qwen3_tts_tpu.ops.fused_step import (
-        fused_decode_step,
-        fused_decode_step_batched,
-        pack_fused_weights,
-    )
-
-    t = TransformerConfig(
-        hidden_size=1024, num_layers=1, num_heads=8, num_kv_heads=4,
-        head_dim=128, intermediate_size=3072, dtype="float32",
-    )
-    params = init_transformer_params(t, jax.random.PRNGKey(0))
-    fw = pack_fused_weights(t, params["layers"], bits=4)
-    rng = np.random.default_rng(11)
-    L, nk, d, B, T = 1, 4, 128, 4, 24
-    positions = [3, 0, 17, 9]
-
-    x = jnp.asarray(rng.standard_normal((B, 1024)) * 0.3, jnp.float32)
-    kc = jnp.asarray(rng.standard_normal((L, B, nk, T, d)) * 0.2, jnp.float32)
-    vc = jnp.asarray(rng.standard_normal((L, B, nk, T, d)) * 0.2, jnp.float32)
-    xb, kb, vb = fused_decode_step_batched(
-        t, fw, x, jnp.asarray(positions, jnp.int32), kc, vc, interpret=True
-    )
-    xb = np.asarray(xb)
-    for b in range(B):
-        x1, _, _ = fused_decode_step(
-            t, fw, x[b : b + 1], jnp.asarray(positions[b], jnp.int32),
-            kc[:, b : b + 1], vc[:, b : b + 1], interpret=True, mode="vmem",
-        )
-        np.testing.assert_allclose(
-            xb[b], np.asarray(x1)[0], atol=2e-2, err_msg=f"b={b}"
-        )
-
-
 def test_engine_int4_end_to_end(tiny_model, tiny_vocab_files):
-    """quantize='int4' engine synthesizes finite audio (XLA path off-TPU)."""
+    """quantize='int4' engine synthesizes finite audio."""
     from leaxer_qwen3_tts_tpu.api.engine import TTSEngine
     from leaxer_qwen3_tts_tpu.frontend import Tokenizer
 

@@ -120,8 +120,8 @@ def test_http_facade(server):
 
 
 def test_server_over_mesh_engine(tiny_model, tiny_vocab_files):
-    """The batching server composes with a TP+DP-sharded engine (the v5e-8
-    serving deployment shape, here on the virtual CPU mesh)."""
+    """The batching server composes with a TP+DP-sharded engine (the
+    multi-device serving shape, here on the virtual CPU mesh)."""
     import jax
 
     from leaxer_qwen3_tts_tpu.parallel import make_mesh

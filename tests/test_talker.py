@@ -1,6 +1,6 @@
 """Talker correctness: prefill/decode parity, padding invariance, cache semantics.
 
-This is the TPU-build analog of the reference's (absent) end-to-end numerical
+This is the analog of the reference's (absent) end-to-end numerical
 tests — SURVEY §4 notes the reference CI never exercises a real model; here the
 incremental-decode path is held to exact agreement with the one-shot prefill
 path, which is the property the reference's talker_prefill/talker_decode ONNX

@@ -1,7 +1,7 @@
 """int8-vs-bf16 fidelity report for the quantized decode configuration.
 
-The headline RTF configuration is int8 weight-only (+ fused Pallas kernels on
-TPU); the quality-exact configuration is bf16.  This tool quantifies what
+The fast configuration is int8 weight-only; the quality-exact configuration
+is bf16.  This tool quantifies what
 int8 changes, using the same per-stage oracles as the parity gate
 (tools/parity_check.compute_stages) on the SAME weights:
 
